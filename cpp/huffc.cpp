@@ -1305,7 +1305,7 @@ int64_t huffc_spec_index(const uint8_t* comp, uint64_t start_bit,
 }
 
 // Gather per-block u32 word rows from a packed payload: row k =
-// words[starts_w[k] .. starts_w[k]+row_words).  Feeds the TPU decode
+// words[starts_w[k] .. starts_w[k]+row_words).  Feeds the device decode
 // kernels' (B, W) lane layout; threaded memcpy at memory-bandwidth speed
 // (the numpy fancy-index equivalent materializes a B*W int64 index array
 // larger than the data itself).  Out-of-range tail words read as zero.

@@ -1,4 +1,4 @@
-"""Device decode kernel tests (CPU backend)."""
+"""Device decode tests (CPU backend): the XLA scan, the plain reference."""
 
 import numpy as np
 import pytest
@@ -12,6 +12,17 @@ from tpuhuff.kernels.decode import (
 )
 
 import jax.numpy as jnp
+
+
+def _decode(rows, bit0, starts, ends, tree, block_len):
+    tables, statics = make_decode_tables(tree)
+    return np.asarray(
+        decode_blocks_device(
+            jnp.asarray(rows), jnp.asarray(bit0),
+            jnp.asarray((ends - starts).astype(np.int32)),
+            *tables, block_len=block_len, **statics,
+        )
+    )
 
 
 def _encode_blocks_host(data, block_len, tree):
@@ -43,56 +54,35 @@ def test_decode_blocks_device_roundtrip(alphabet):
     tree = HuffTree.from_weights(ByteWeights.from_bytes(data))
     payload, starts, ends = _encode_blocks_host(data, block_len, tree)
     rows, bit0 = payload_to_lane_words(payload, starts, ends, block_len)
-    thr, syms, lens_t = make_decode_tables(tree)
-    out = np.asarray(
-        decode_blocks_device(
-            jnp.asarray(rows), jnp.asarray(bit0),
-            jnp.asarray((ends - starts).astype(np.int32)),
-            thr, syms, lens_t, block_len,
-        )
-    )
+    out = _decode(rows, bit0, starts, ends, tree, block_len)
     for b in range(starts.size):
         blk = data[b * block_len : (b + 1) * block_len]
         assert np.array_equal(out[b, : blk.size], blk), b
 
 
-@pytest.mark.parametrize("unroll", [2, 4, 8])
+@pytest.mark.parametrize("block_len", [17, 100, 256])
 @pytest.mark.parametrize("alphabet", [2, 41, 256])
-def test_decode_blocks_device_unrolled(alphabet, unroll):
-    rng = np.random.default_rng(alphabet * 31 + unroll)
-    block_len = 256
-    data = rng.integers(0, alphabet, 8 * block_len - 77, dtype=np.uint8)
+def test_decode_blocks_device_block_lengths(alphabet, block_len):
+    rng = np.random.default_rng(alphabet * 31 + block_len)
+    data = rng.integers(0, alphabet, 8 * block_len - 7, dtype=np.uint8)
     tree = HuffTree.from_weights(ByteWeights.from_bytes(data))
     payload, starts, ends = _encode_blocks_host(data, block_len, tree)
     rows, bit0 = payload_to_lane_words(payload, starts, ends, block_len)
-    thr, syms, lens_t = make_decode_tables(tree)
-    out = np.asarray(
-        decode_blocks_device(
-            jnp.asarray(rows), jnp.asarray(bit0),
-            jnp.asarray((ends - starts).astype(np.int32)),
-            thr, syms, lens_t, block_len, unroll=unroll,
-        )
-    )
+    out = _decode(rows, bit0, starts, ends, tree, block_len)
+    assert out.shape == (starts.size, block_len)
     for b in range(starts.size):
         blk = data[b * block_len : (b + 1) * block_len]
         assert np.array_equal(out[b, : blk.size], blk), b
+        assert not out[b, blk.size:].any()  # zero past the symbols
 
 
-def test_decode_unrolled_deep_tree_narrow_rows():
-    # rows narrower than unroll+1 words must be padded internally
+def test_decode_narrow_rows():
+    # rows of a single word: the two-word window clamps at the row's end
     data = np.frombuffer(b"ab" * 40, dtype=np.uint8).copy()
     tree = HuffTree.from_weights(ByteWeights.from_bytes(data))
     payload, starts, ends = _encode_blocks_host(data, 16, tree)
     rows, bit0 = payload_to_lane_words(payload, starts, ends, 16)
-    assert rows.shape[1] < 9
-    thr, syms, lens_t = make_decode_tables(tree)
-    out = np.asarray(
-        decode_blocks_device(
-            jnp.asarray(rows), jnp.asarray(bit0),
-            jnp.asarray((ends - starts).astype(np.int32)),
-            thr, syms, lens_t, 16, unroll=8,
-        )
-    )
+    out = _decode(rows[:, :1], bit0, starts, ends, tree, 16)
     assert np.array_equal(out.reshape(-1)[: data.size], data)
 
 
@@ -101,14 +91,7 @@ def test_decode_single_letter_tree():
     tree = HuffTree.from_weights(ByteWeights.from_bytes(data))
     payload, starts, ends = _encode_blocks_host(data, 64, tree)
     rows, bit0 = payload_to_lane_words(payload, starts, ends, 64)
-    thr, syms, lens_t = make_decode_tables(tree)
-    out = np.asarray(
-        decode_blocks_device(
-            jnp.asarray(rows), jnp.asarray(bit0),
-            jnp.asarray((ends - starts).astype(np.int32)),
-            thr, syms, lens_t, 64,
-        )
-    )
+    out = _decode(rows, bit0, starts, ends, tree, 64)
     assert np.array_equal(out[0], np.zeros(64, dtype=np.uint8))
 
 
@@ -125,14 +108,7 @@ def test_decode_deep_tree():
                       p=np.array(fib) / sum(fib))
     payload, starts, ends = _encode_blocks_host(data, 256, tree)
     rows, bit0 = payload_to_lane_words(payload, starts, ends, 256)
-    thr, syms, lens_t = make_decode_tables(tree)
-    out = np.asarray(
-        decode_blocks_device(
-            jnp.asarray(rows), jnp.asarray(bit0),
-            jnp.asarray((ends - starts).astype(np.int32)),
-            thr, syms, lens_t, 256,
-        )
-    )
+    out = _decode(rows, bit0, starts, ends, tree, 256)
     assert np.array_equal(out.reshape(-1)[: data.size], data)
 
 
@@ -158,29 +134,19 @@ def _canonical_tree(data):
 
 
 @pytest.mark.parametrize("alphabet", [2, 41, 256])
-@pytest.mark.parametrize("unroll", [1, 4])
-def test_decode_blocks_canonical(alphabet, unroll):
-    from tpuhuff.kernels.decode import (
-        decode_blocks_canonical,
-        make_canonical_decode_tables,
-    )
+@pytest.mark.parametrize("block_len", [64, 256])
+def test_decode_blocks_canonical(alphabet, block_len):
+    from tpuhuff.kernels.decode import make_canonical_decode_tables
 
-    rng = np.random.default_rng(alphabet * 13 + unroll)
-    block_len = 256
+    rng = np.random.default_rng(alphabet * 13 + block_len)
     data = rng.integers(0, alphabet, 8 * block_len - 31, dtype=np.uint8)
     tree = _canonical_tree(data)
     payload, starts, ends = _encode_blocks_host(data, block_len, tree)
     rows, bit0 = payload_to_lane_words(payload, starts, ends, block_len)
-    tabs = make_canonical_decode_tables(tree)
-    assert tabs is not None, "canonicalized tree must be detected canonical"
-    ub, dd, perm4, ml = tabs
-    out = np.asarray(
-        decode_blocks_canonical(
-            jnp.asarray(rows), jnp.asarray(bit0),
-            jnp.asarray((ends - starts).astype(np.int32)),
-            ub, dd, perm4, ml, block_len, unroll=unroll,
-        )
-    )
+    assert make_canonical_decode_tables(tree) is not None, \
+        "canonicalized tree must be detected canonical"
+    assert make_decode_tables(tree)[1]["canonical"]
+    out = _decode(rows, bit0, starts, ends, tree, block_len)
     for b in range(starts.size):
         blk = data[b * block_len : (b + 1) * block_len]
         assert np.array_equal(out[b, : blk.size], blk), b

@@ -135,36 +135,6 @@ def test_over_32bit_codes_rejected():
         make_encode_tables(lens, codes)
 
 
-def test_lut_select_matches_take():
-    import jax.numpy as jnp
-
-    from tpuhuff.kernels.encode import lut_lens, lut_select
-
-    rng = np.random.default_rng(11)
-    table = jnp.asarray(rng.integers(0, 2**32, 256, dtype=np.uint32))
-    lens = jnp.asarray(rng.integers(0, 33, 256, dtype=np.int32))
-    idx = jnp.asarray(rng.integers(0, 256, (3, 512), dtype=np.uint8)).astype(jnp.int32)
-    got = np.asarray(lut_select(idx, table))
-    assert np.array_equal(got, np.asarray(table)[np.asarray(idx)])
-    got_l = np.asarray(lut_lens(idx, lens))
-    assert np.array_equal(got_l, np.asarray(lens)[np.asarray(idx)])
-
-
-@pytest.mark.parametrize("alphabet", [2, 256])
-def test_encode_blocks_gather_free_parity(alphabet):
-    rng = np.random.default_rng(alphabet)
-    data = rng.integers(0, alphabet, (4, 1024), dtype=np.uint8)
-    tree = _tree_for(data.reshape(-1))
-    lens, codes = tree.encode_tables()
-    dl, da = make_encode_tables(lens, codes)
-    w0, b0 = encode_blocks(data, dl, da, gather_free=False)
-    w1, b1 = encode_blocks(data, dl, da, gather_free=True)
-    assert np.array_equal(np.asarray(w0), np.asarray(w1))
-    assert np.array_equal(np.asarray(b0), np.asarray(b1))
-    bl = np.asarray(block_bit_lengths(data, dl, gather_free=True))
-    assert np.array_equal(bl, np.asarray(b0))
-
-
 @pytest.mark.parametrize("alphabet", [2, 17, 256])
 def test_encode_blocks_max_code_len_parity(alphabet):
     rng = np.random.default_rng(alphabet + 99)
@@ -194,34 +164,6 @@ def test_encode_blocks_max_code_len_with_valid():
         ref_payload, ref_pad = pack_codes_u8(data[i, : valid[i]], lens, codes)
         assert int(b[i]) == len(ref_payload) * 8 - ref_pad
         assert words_to_payload(np.asarray(w[i]), int(b[i])) == ref_payload
-
-
-@pytest.mark.parametrize("alphabet", [2, 17, 256])
-def test_encode_blocks_transposed_parity(alphabet):
-    rng = np.random.default_rng(alphabet + 7)
-    data = rng.integers(0, alphabet, (4, 512), dtype=np.uint8)
-    tree = _tree_for(data.reshape(-1))
-    lens, codes = tree.encode_tables()
-    dl, da = make_encode_tables(lens, codes)
-    ml = int(lens.max())
-    w0, b0 = encode_blocks(data, dl, da, max_code_len=ml)
-    w1, b1 = encode_blocks(data, dl, da, max_code_len=ml, transposed=True)
-    assert np.array_equal(np.asarray(b0), np.asarray(b1))
-    assert np.array_equal(np.asarray(w0), np.asarray(w1))
-
-
-def test_encode_blocks_transposed_valid_lens():
-    rng = np.random.default_rng(11)
-    data = rng.integers(0, 200, (4, 256), dtype=np.uint8)
-    valid = np.array([256, 100, 1, 0], dtype=np.int32)
-    tree = _tree_for(data.reshape(-1))
-    lens, codes = tree.encode_tables()
-    dl, da = make_encode_tables(lens, codes)
-    w0, b0 = encode_blocks(data, dl, da, valid, max_code_len=int(lens.max()))
-    w1, b1 = encode_blocks(data, dl, da, valid, max_code_len=int(lens.max()),
-                           transposed=True)
-    assert np.array_equal(np.asarray(b0), np.asarray(b1))
-    assert np.array_equal(np.asarray(w0), np.asarray(w1))
 
 
 @pytest.mark.parametrize("alphabet", [2, 17, 41, 256])

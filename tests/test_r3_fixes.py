@@ -114,15 +114,13 @@ def test_bigblock_device_decode_without_native_uses_python_dfa(
 # every public kernel entry imports and runs once (next #5)
 # ---------------------------------------------------------------------------
 def test_all_public_kernel_entries_run():
-    import jax.numpy as jnp
-
     import importlib
+
+    import jax.numpy as jnp
 
     from tpuhuff.core.canonical import canonicalize
     from tpuhuff.kernels import decode as kdec
     from tpuhuff.kernels import encode as kenc
-    from tpuhuff.kernels import pallas_decode as kpdec
-    from tpuhuff.kernels import pallas_encode2 as kpenc
 
     # the package re-exports the histogram FUNCTION under the module's name
     khist = importlib.import_module("tpuhuff.kernels.histogram")
@@ -134,105 +132,63 @@ def test_all_public_kernel_entries_run():
     dl, da = kenc.make_encode_tables(lens, codes)
     ml = int(lens.max())
     canon = kenc.make_canonical_encode_tables(tree)
+    assert canon is not None
     blocks = data.reshape(-1, 64)
 
     ran = set()
 
     def run(name, thunk):
-        thunk()
+        out = thunk()
         ran.add(name)
+        return out
 
     run("encode.make_encode_tables", lambda: kenc.make_encode_tables(lens, codes))
-    run("encode.encode_blocks", lambda: kenc.encode_blocks(blocks, dl, da))
+    words, bits = run("encode.encode_blocks",
+                      lambda: kenc.encode_blocks(blocks, dl, da))
     run("encode.block_bit_lengths", lambda: kenc.block_bit_lengths(blocks, dl))
     run("encode.count_missing", lambda: kenc.count_missing(blocks, dl))
-    run("encode.lut_select",
-        lambda: kenc.lut_select(jnp.arange(256, dtype=jnp.int32), da))
-    run("encode.lut_lens",
-        lambda: kenc.lut_lens(jnp.arange(256, dtype=jnp.int32), dl))
-    words, bits = kenc.encode_blocks(blocks, dl, da)
     run("encode.words_to_payload",
         lambda: kenc.words_to_payload(np.asarray(words[0]), int(bits[0])))
-    run("histogram.histogram", lambda: khist.histogram(data))
-    run("histogram.histogram_u32", lambda: khist.histogram_u32(data))
-    assert canon is not None
     run("encode.make_canonical_encode_tables",
         lambda: kenc.make_canonical_encode_tables(tree))
     run("encode.lut_canonical",
         lambda: kenc.lut_canonical(
             jnp.arange(256, dtype=jnp.int32), *canon[:4], ml, bool(canon[5])))
-    run("pallas_encode2.pack_pairs", lambda: kpenc.pack_pairs(jnp.asarray(blocks)))
-    if 2 * ml <= 32:
-        run("pallas_encode2.encode_blocks_pallas2",
-            lambda: kpenc.encode_blocks_pallas2(
-                blocks, canon[:4], ml, interpret=True))
-        if kpenc.fused_layout_ok(blocks.shape[1], ml):
-            # the fused-hist tail output goes through finalize_hist8
-            hist = kpenc.encode_blocks_pallas2(
-                blocks, canon[:4], ml, interpret=True,
-                hist_data=jnp.asarray(blocks).reshape(-1))[-1]
-            assert np.array_equal(
-                np.asarray(hist),
-                np.bincount(np.asarray(blocks).reshape(-1), minlength=256))
-            ran.add("pallas_encode2.finalize_hist8")
-    # decode side
-    thr, sym4, len4 = kdec.make_decode_tables(tree)
-    ran.add("decode.make_decode_tables")
+    run("histogram.histogram", lambda: khist.histogram(data))
+    # decode side: one block through every entry
     payload = kenc.words_to_payload(np.asarray(words[0]), int(bits[0]))
-    full = b"".join(
-        kenc.words_to_payload(np.asarray(words[b]), int(bits[b]))
-        for b in range(0, 1)
-    )
     starts = np.array([0], np.int64)
     ends = np.array([int(bits[0])], np.int64)
-    rows, bit0 = kdec.payload_to_lane_words(payload, starts, ends, 64)
-    ran.add("decode.payload_to_lane_words")
-    run("decode.decode_blocks_device",
-        lambda: kdec.decode_blocks_device(
-            rows, bit0, (ends - starts).astype(np.int32), thr, sym4, len4, 64))
-    cd = kdec.make_canonical_decode_tables(tree)
-    ran.add("decode.make_canonical_decode_tables")
-    assert cd is not None
-    ub, dd, perm4, mlc = cd
-    run("decode.decode_blocks_canonical",
-        lambda: kdec.decode_blocks_canonical(
-            rows, bit0, (ends - starts).astype(np.int32), ub, dd, perm4,
-            mlc, 64))
-    run("decode.decode_rows_device",
-        lambda: kdec.decode_rows_device(
-            rows, bit0, (ends - starts).astype(np.int32), tree, 64))
-    run("pallas_decode.make_fused_tables",
-        lambda: kpdec.make_fused_tables(ub, dd, perm4))
-    run("pallas_decode.make_general_fused_tables",
-        lambda: kpdec.make_general_fused_tables(thr, sym4, len4))
-    run("pallas_decode.decode_blocks_pallas_canonical",
-        lambda: kpdec.decode_blocks_pallas_canonical(
-            rows, bit0, (ends - starts).astype(np.int32), ub, dd, perm4,
-            mlc, 64, unroll=4, interpret=True))
-    jub, jdd, jperm = kpdec.make_fused_tables(ub, dd, perm4)
-    eytz, s4, l4 = kpdec.make_general_fused_tables(thr, sym4, len4)
-    group = kpdec.SUB * kpdec.LANES
-    wpad = max(rows.shape[1], 5)
-    rows_p = np.zeros((group, wpad), np.uint32)
-    rows_p[:1, : rows.shape[1]] = rows
-    bit0_p = np.zeros(group, np.int32)
-    bit0_p[:1] = bit0
-    nbits_p = np.zeros(group, np.int32)
-    nbits_p[:1] = (ends - starts).astype(np.int32)
-    run("pallas_decode.decode_rows_fused",
-        lambda: kpdec.decode_rows_fused(
-            jnp.asarray(rows_p), jnp.asarray(bit0_p), jnp.asarray(nbits_p),
-            jub, jdd, jperm, mlc, 64, 4, interpret=True))
-    run("pallas_decode.decode_rows_fused_general",
-        lambda: kpdec.decode_rows_fused_general(
-            jnp.asarray(rows_p), jnp.asarray(bit0_p), jnp.asarray(nbits_p),
-            eytz, s4, l4, 64, 4, interpret=True))
+    nbits = (ends - starts).astype(np.int32)
+    rows, bit0 = run("decode.payload_to_lane_words",
+                     lambda: kdec.payload_to_lane_words(payload, starts,
+                                                        ends, 64))
+    run("decode.make_canonical_decode_tables",
+        lambda: kdec.make_canonical_decode_tables(tree))
+    tables, statics = run("decode.make_decode_tables",
+                          lambda: kdec.make_decode_tables(tree))
+    outs = [
+        run("decode.decode_blocks_device",
+            lambda: kdec.decode_blocks_device(
+                rows, bit0, nbits, *tables, block_len=64, **statics)),
+        run("decode.decode_rows_device",
+            lambda: kdec.decode_rows_device(rows, bit0, nbits, tree, 64)),
+    ]
+    for out in outs:
+        assert np.array_equal(np.asarray(out)[0], blocks[0])
+
+    class _Hdr:
+        block_len = 64
+        orig_len = 64
+        end_bits = ends.astype(np.uint64)
+
+    _Hdr.tree = tree
+    assert run("decode.decode_hf2_device",
+               lambda: kdec.decode_hf2_device(_Hdr, payload)) == blocks[0].tobytes()
 
     # completeness: every exported kernel name was exercised
     for mod, prefix in (
         (kenc, "encode"), (khist, "histogram"), (kdec, "decode"),
-        (kpenc, "pallas_encode2"), (kpdec, "pallas_decode"),
     ):
         for name in mod.__all__:
-            key = f"{prefix}.{name}"
-            assert key in ran or any(r.endswith("." + name) for r in ran), key
+            assert f"{prefix}.{name}" in ran, f"{prefix}.{name}"

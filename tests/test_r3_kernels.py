@@ -1,15 +1,7 @@
-"""Round-3 kernel additions: fused-input encode layout, Pallas histogram,
-ride-along missing-letter count.
-
-All Pallas runs use interpret mode on the CPU backend (conftest); the
-bit-level contract is identical on hardware (r3 TPU sessions verified the
-same outputs at 16/100 MiB).
-"""
-
-import os
+"""Encode-program ride-alongs (missing-letter count, histogram) and the
+histogram's exactness, on the CPU backend."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
@@ -21,10 +13,6 @@ from tpuhuff.kernels.encode import (
     encode_blocks, make_canonical_encode_tables, make_encode_tables,
     words_to_payload,
 )
-from tpuhuff.kernels.pallas_encode2 import (
-    encode_blocks_pallas2, fused_layout_ok,
-)
-from tpuhuff.kernels.pallas_histogram import histogram_pallas
 
 
 def _tree_tables(data_bytes):
@@ -35,40 +23,81 @@ def _tree_tables(data_bytes):
     return tree, np.asarray(lens_lut), np.asarray(codes_lut), canon
 
 
-def test_fused_layout_parity_and_miss():
+def test_canonical_encode_valid_lens_parity_and_miss():
     rng = np.random.default_rng(3)
-    base = np.frombuffer(b"fused layout parity 012345 " * 4096,
+    base = np.frombuffer(b"canonical ladder parity 012345 " * 4096,
                          dtype=np.uint8)
     data = base[: 200 * 256].reshape(200, 256).copy()
     data[3, :40] = rng.integers(0, 200, 40, dtype=np.uint8)
     tree, lens_lut, codes_lut, canon = _tree_tables(data.tobytes())
-    ml = canon[4]
-    assert fused_layout_ok(256, ml)
+    dl, da = make_encode_tables(lens_lut, codes_lut)
     valid = np.full(200, 256, np.int32)
     valid[3] = 40
     valid[199] = 1
-    w, b, m = encode_blocks_pallas2(
-        jnp.asarray(data), canon[:4], ml,
-        valid_lens=jnp.asarray(valid), interpret=True,
-        full_alphabet=bool(canon[5]), with_miss=True)
+    w, b, m = encode_blocks(
+        jnp.asarray(data), dl, da, jnp.asarray(valid), max_code_len=canon[4],
+        canon_tables=canon[:4], full_alphabet=bool(canon[5]), with_miss=True)
     assert int(m) == 0
     for i in (0, 3, 64, 199):
         ref, _ = pack_codes_u8(data[i, : valid[i]], lens_lut, codes_lut)
         assert words_to_payload(np.asarray(w[i]), int(b[i])) == ref
 
 
-def test_fused_miss_detects_stale_tree():
+def test_canonical_encode_miss_detects_stale_tree():
     # build a tree over a limited alphabet, then inject a foreign byte
     data = np.frombuffer(b"abcabcababc!" * 512, dtype=np.uint8)[
         : 16 * 256].reshape(16, 256).copy()
     tree, lens_lut, codes_lut, canon = _tree_tables(data.tobytes())
     assert canon is not None and not canon[5]  # sparse alphabet
+    dl, da = make_encode_tables(lens_lut, codes_lut)
     data2 = data.copy()
     data2[4, 7] = 255  # not in the alphabet
-    _, _, m = encode_blocks_pallas2(
-        jnp.asarray(data2), canon[:4], canon[4], interpret=True,
-        full_alphabet=False, with_miss=True)
+    _, _, m = encode_blocks(
+        jnp.asarray(data2), dl, da, max_code_len=canon[4],
+        canon_tables=canon[:4], full_alphabet=False, with_miss=True)
     assert int(m) == 1
+
+
+def test_encode_hist_data_rides_along():
+    # the adaptive dataset path: the histogram of a second operand comes
+    # back from the encode program, exact, beside the packed words
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, (192, 256), dtype=np.uint8)
+    tree, lens_lut, codes_lut, canon = _tree_tables(data.tobytes())
+    dl, da = make_encode_tables(lens_lut, codes_lut)
+    hist_src = rng.integers(0, 256, 10_000, dtype=np.uint8)
+    words, bits, miss, hist = encode_blocks(
+        jnp.asarray(data), dl, da, max_code_len=canon[4],
+        canon_tables=canon[:4], full_alphabet=bool(canon[5]),
+        with_miss=True, hist_data=jnp.asarray(hist_src))
+    assert int(miss) == 0
+    assert np.array_equal(np.asarray(hist),
+                          np.bincount(hist_src, minlength=256))
+    for b in (0, 63, 191):
+        ref, _ = pack_codes_u8(data[b], lens_lut, codes_lut)
+        assert words_to_payload(np.asarray(words[b]), int(bits[b])) == ref
+
+
+# chunk = 2^22 bytes per matrix product: below, at and above it
+@pytest.mark.parametrize("n", [1, 255, 100_000, 1 << 22, (1 << 22) + 7])
+def test_histogram_exact(n):
+    from tpuhuff.kernels.histogram import histogram
+
+    rng = np.random.default_rng(n)
+    d = rng.integers(0, 256, n, dtype=np.uint8)
+    got = np.asarray(histogram(jnp.asarray(d)))
+    assert got.dtype == np.int32
+    assert np.array_equal(got, np.bincount(d, minlength=256))
+
+
+def test_histogram_one_hot_counts_stay_exact():
+    # every byte equal: one bin takes the whole chunk, the largest count a
+    # float32 partial sum must hold exactly (2^22 < 2^24)
+    from tpuhuff.kernels.histogram import histogram
+
+    d = np.full((1 << 22) + 3, 201, np.uint8)
+    got = np.asarray(histogram(jnp.asarray(d)))
+    assert got[201] == d.size and got.sum() == d.size
 
 
 def test_encode_blocks_with_miss_nonfused_path():
@@ -83,14 +112,6 @@ def test_encode_blocks_with_miss_nonfused_path():
                             max_code_len=int(lens_lut.max()),
                             with_miss=True)
     assert int(m) == 1
-
-
-@pytest.mark.parametrize("n", [1 << 17, 100_000, 3 << 17])
-def test_pallas_histogram_exact(n):
-    rng = np.random.default_rng(n)
-    d = rng.integers(0, 256, n, dtype=np.uint8)
-    got = np.asarray(histogram_pallas(jnp.asarray(d), interpret=True))
-    assert np.array_equal(got, np.bincount(d, minlength=256))
 
 
 def test_histogram_dispatcher_cpu_matches():

@@ -29,38 +29,6 @@ def test_encode_blocks_host_empty_input_empty_table():
     assert payload == b"" and total == 0 and bit_lens.size == 0
 
 
-def test_fused_layout_rejects_n8():
-    # ADVICE r3: N=8 would give R=4 out rows — a hardware-only sublane
-    # tiling violation; the fused route must refuse it
-    from tpuhuff.kernels.pallas_encode2 import fused_layout_ok
-
-    assert not fused_layout_ok(8, 14)
-    assert fused_layout_ok(16, 14)
-    assert fused_layout_ok(256, 14)
-
-
-def test_layout_knobs_resolved_at_import():
-    import os
-
-    from tpuhuff.kernels import pallas_encode2 as pe2
-
-    # flipping the env mid-process must NOT change the import-resolved
-    # value (whatever it legitimately was at interpreter start — a
-    # pre-set TPUHUFF_ENC_LAYOUT is a supported A/B configuration)
-    before = pe2.ENC_LAYOUT
-    old = os.environ.get("TPUHUFF_ENC_LAYOUT")
-    try:
-        os.environ["TPUHUFF_ENC_LAYOUT"] = (
-            "flat" if before == "fused" else "fused")
-        assert pe2.ENC_LAYOUT == before
-        assert pe2.fused_layout_ok(256, 14) == (before == "fused")
-    finally:
-        if old is None:
-            os.environ.pop("TPUHUFF_ENC_LAYOUT", None)
-        else:
-            os.environ["TPUHUFF_ENC_LAYOUT"] = old
-
-
 def test_encode_blocks_host_tiny_blocks_threaded_exact():
     # ADVICE r3: with block spans < 8 bits thread-adjacent blocks share
     # seam bytes; the C++ side must serialize.  Skewed 2-symbol tree gives
@@ -82,131 +50,3 @@ def test_encode_blocks_host_tiny_blocks_threaded_exact():
         assert payload == ref_payload
 
 
-def test_fused_transpose_out_bit_exact_and_hist():
-    # r4: in-kernel MXU transpose emits container-row words directly, and
-    # the fused histogram of a second operand rides the same call
-    import jax.numpy as jnp
-
-    from tpuhuff.core.canonical import canonicalize
-    from tpuhuff.core.codec import pack_codes_u8
-    from tpuhuff.kernels.encode import (
-        make_canonical_encode_tables, words_to_payload,
-    )
-    from tpuhuff.kernels.pallas_encode2 import encode_blocks_pallas2
-
-    rng = np.random.default_rng(5)
-    data = rng.integers(0, 256, (192, 256), dtype=np.uint8)  # pads to 256
-    tree = canonicalize(HuffTree.from_weights(
-        ByteWeights.from_bytes(data.reshape(-1))))
-    lens, codes = tree.encode_tables()
-    tabs = make_canonical_encode_tables(tree)
-    assert tabs is not None
-    ml = int(np.asarray(lens).max())
-    hist_src = rng.integers(0, 256, 10_000, dtype=np.uint8)  # < padded size
-    words, bits, miss, hist = encode_blocks_pallas2(
-        jnp.asarray(data), tabs[:4], ml, interpret=True,
-        full_alphabet=bool(tabs[5]), with_miss=True,
-        hist_data=jnp.asarray(hist_src))
-    assert int(miss) == 0
-    assert np.array_equal(np.asarray(hist),
-                          np.bincount(hist_src, minlength=256))
-    for b in (0, 63, 191):
-        ref, _ = pack_codes_u8(data[b], lens, codes)
-        assert words_to_payload(np.asarray(words[b]), int(bits[b])) == ref
-
-
-def test_nondefault_layout_knobs_still_work():
-    # the A/B fallback paths (XLA-side inverse layouts) must stay green
-    # even though the defaults bypass them
-    import jax.numpy as jnp
-
-    from tpuhuff.core.canonical import canonicalize
-    from tpuhuff.core.codec import pack_codes_u8
-    from tpuhuff.kernels import pallas_decode as pdec
-    from tpuhuff.kernels import pallas_encode2 as pe2
-    from tpuhuff.kernels.encode import (
-        make_canonical_encode_tables, make_encode_tables, encode_blocks,
-        words_to_payload,
-    )
-    from tpuhuff.kernels.decode import (
-        make_canonical_decode_tables, payload_to_lane_words,
-    )
-    from tpuhuff.dist import stitch_words
-
-    rng = np.random.default_rng(17)
-    data = rng.integers(0, 256, (1024, 64), dtype=np.uint8)
-    tree = canonicalize(HuffTree.from_weights(
-        ByteWeights.from_bytes(data.reshape(-1))))
-    lens, codes = tree.encode_tables()
-    tabs = make_canonical_encode_tables(tree)
-    ml = int(np.asarray(lens).max())
-
-    old_tout, old_dec = pe2.ENC_TOUT, pdec.DEC_TOUT
-    try:
-        pe2.ENC_TOUT = False
-        w, b = pe2.encode_blocks_pallas2(
-            jnp.asarray(data), tabs[:4], ml, interpret=True,
-            full_alphabet=bool(tabs[5]))
-        for blk in (0, 512, 1023):
-            ref, _ = pack_codes_u8(data[blk], lens, codes)
-            assert words_to_payload(np.asarray(w[blk]), int(b[blk])) == ref
-
-        pdec.DEC_TOUT = False
-        dl, da = make_encode_tables(lens, codes)
-        we, be = encode_blocks(jnp.asarray(data), dl, da, max_code_len=ml)
-        be_np = np.asarray(be).astype(np.int64)
-        payload, _ = stitch_words(np.asarray(we), be_np.astype(np.uint64))
-        ends = np.cumsum(be_np)
-        starts = np.concatenate([[0], ends[:-1]])
-        rows, bit0 = payload_to_lane_words(payload, starts, ends, 64)
-        ub, dd, perm4, mlc = make_canonical_decode_tables(tree)
-        out = pdec.decode_blocks_pallas_canonical(
-            rows, bit0, (ends - starts).astype(np.int32), ub, dd, perm4,
-            mlc, 64, unroll=4, interpret=True)
-        assert np.array_equal(out.reshape(-1), data.reshape(-1))
-    finally:
-        pe2.ENC_TOUT, pdec.DEC_TOUT = old_tout, old_dec
-
-
-def test_ml1_degenerate_through_fused_kernels():
-    # 2-symbol alphabet: ML=1 (the ladder degenerates to a constant) must
-    # stay bit-exact through the fused encode AND the tout decode, whose
-    # r4 roll bound collapses to a single level here
-    import jax.numpy as jnp
-
-    from tpuhuff.core.canonical import canonicalize
-    from tpuhuff.core.codec import pack_codes_u8
-    from tpuhuff.dist import stitch_words
-    from tpuhuff.kernels import pallas_decode as pdec
-    from tpuhuff.kernels.decode import (
-        make_canonical_decode_tables, payload_to_lane_words,
-    )
-    from tpuhuff.kernels.encode import (
-        make_canonical_encode_tables, words_to_payload,
-    )
-    from tpuhuff.kernels.pallas_encode2 import encode_blocks_pallas2
-
-    rng = np.random.default_rng(23)
-    data = rng.choice(np.array([7, 200], np.uint8),
-                      size=(1024, 64)).astype(np.uint8)
-    tree = canonicalize(HuffTree.from_weights(
-        ByteWeights.from_bytes(data.reshape(-1))))
-    lens, codes = tree.encode_tables()
-    tabs = make_canonical_encode_tables(tree)
-    ml = int(np.asarray(lens).max())
-    assert ml == 1
-    w, b = encode_blocks_pallas2(jnp.asarray(data), tabs[:4], ml,
-                                 interpret=True,
-                                 full_alphabet=bool(tabs[5]))
-    ref, _ = pack_codes_u8(data[0], lens, codes)
-    assert words_to_payload(np.asarray(w[0]), int(b[0])) == ref
-    b_np = np.asarray(b).astype(np.int64)
-    payload, _ = stitch_words(np.asarray(w), b_np.astype(np.uint64))
-    ends = np.cumsum(b_np)
-    starts = np.concatenate([[0], ends[:-1]])
-    rows, bit0 = payload_to_lane_words(payload, starts, ends, 64)
-    ub, dd, perm4, mlc = make_canonical_decode_tables(tree)
-    out = pdec.decode_blocks_pallas_canonical(
-        rows, bit0, (ends - starts).astype(np.int32), ub, dd, perm4,
-        mlc, 64, unroll=4, interpret=True)
-    assert np.array_equal(out.reshape(-1), data.reshape(-1))

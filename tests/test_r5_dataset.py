@@ -116,8 +116,8 @@ def test_collect_hist_is_exact(tmp_path):
 
 
 def test_collect_hist_device_route_exact(tmp_path):
-    """Same exactness through the device writer (CPU backend: XLA kernels;
-    on TPU this is the fused hist_data MXU operand)."""
+    """Same exactness through the device writer (the encode program's
+    hist_data operand)."""
     rng = np.random.default_rng(10)
     data = rng.integers(0, 256, 70_000, dtype=np.uint8)
     src = tmp_path / "y.bin"

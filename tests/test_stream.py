@@ -263,10 +263,14 @@ def test_hf2_decompress_group_streaming(tmpfiles):
 
 
 def test_hf2_bounded_memory_large_file(tmp_path):
-    """Compress+decompress a 1.5 GB file under a 1 GB address-space cap
-    (VERDICT r1 #3: configs 4-5 scale regime).  Runs in a subprocess so the
-    rlimit can't poison the test runner; skipped without the native runtime
-    (the python DFA fallback is too slow at this size)."""
+    """Compress+decompress a 1.5 GiB file with a peak resident set under
+    1 GiB (configs 4-5 scale regime): the writer and reader hold O(chunk)
+    bytes, never the file.  The bound is on the child's peak RSS
+    (``ru_maxrss``), not on its address space: a threaded C++ call reserves
+    a stack and a malloc arena per thread, so virtual size grows with the
+    host's core count while the memory actually used does not.  Runs in a
+    subprocess so the measurement sees only this work; skipped without the
+    native runtime (the python DFA fallback is too slow at this size)."""
     import subprocess
     import sys
 
@@ -277,7 +281,6 @@ def test_hf2_bounded_memory_large_file(tmp_path):
     script = f"""
 import resource, sys, os, hashlib
 import numpy as np
-resource.setrlimit(resource.RLIMIT_AS, (1 << 30, 1 << 30))
 sys.path.insert(0, {repr(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))})
 from tpuhuff.io import read_compress_write_hf2, read_decompress_write_hf2
 src = {repr(str(tmp_path / 'big.bin'))}
@@ -287,6 +290,7 @@ with open(src, 'wb') as f:
     base = rng.integers(0, 64, 1 << 24, dtype=np.uint8).tobytes()
     for i in range(96):  # 96 * 16 MiB = 1.5 GiB
         f.write(base); h.update(base)
+del base
 want = h.hexdigest()
 hf2 = src + '.hf2'
 back = src + '.back'
@@ -299,12 +303,15 @@ with open(back, 'rb') as f:
         h2.update(piece)
 assert h2.hexdigest() == want, 'roundtrip mismatch'
 assert os.path.getsize(hf2) < 1_300_000_000
+print('PEAK_RSS_KIB', resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
 print('OK')
 """
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        text=True, timeout=600, env=env)
     assert r.returncode == 0 and "OK" in r.stdout, (r.stdout, r.stderr[-2000:])
+    peak = int(r.stdout.split("PEAK_RSS_KIB")[1].split()[0]) * 1024
+    assert peak < (1 << 30), f"peak RSS {peak} bytes for a 1.5 GiB file"
 
 
 def test_transcode_hff_to_hf2(tmpfiles, monkeypatch):

@@ -1,4 +1,4 @@
-"""tpuhuff — a TPU-native Huffman codec framework.
+"""tpuhuff — a Huffman codec framework for accelerators, in JAX.
 
 A from-scratch JAX/XLA/Pallas + C++ re-design with the full capabilities of
 the reference Rust workspace `k-xlsx/huff-encoding` (see SURVEY.md):
@@ -6,10 +6,10 @@ the reference Rust workspace `k-xlsx/huff-encoding` (see SURVEY.md):
 * :mod:`tpuhuff.core`    — letters, histograms, Huffman trees (flat arrays,
   reference-faithful construction), the bit-exact ``.hff`` container, and the
   vectorized host codec (L1-L3).
-* :mod:`tpuhuff.kernels` — JAX/Pallas device kernels: histogram, bit-pack
-  encode, table-driven decode.
+* :mod:`tpuhuff.kernels` — device kernels: histogram, bit-pack encode, and
+  lane-parallel decode.
 * :mod:`tpuhuff.dist`    — mesh/shard_map block-parallel pipelines, psum
-  histogram merge, ordered gather (multi-chip / multi-host).
+  histogram merge, ordered gather (multi-device / multi-host).
 * :mod:`tpuhuff.io`      — streaming two-pass file codec (`.hff` compatible),
   block-offset ``.hf2`` container for parallel decode.
 * :mod:`tpuhuff.native`  — C++ runtime (threaded histogram, scalar encoder,

@@ -12,7 +12,7 @@ Flag-for-flag compatible with the reference ``huff`` binary
 * interactive overwrite prompt unless ``-n`` (`cli.rs:116-130`)
 
 tpuhuff extensions: ``--hf2`` (block-indexed container, parallel decode),
-``--device`` (route packing through the TPU kernels), ``--stats``
+``--device`` (route packing through the JAX device kernels), ``--stats``
 (ratio/GB/s/block count — SURVEY §5 observability), ``--threads``.
 """
 
@@ -79,7 +79,7 @@ def _build_parser() -> argparse.ArgumentParser:
                    "one time (units: K/Ki M/Mi G/Gi; default 2G)")
     p.add_argument("--hf2", action="store_true",
                    help="Use the block-indexed .hf2 container "
-                   "(enables parallel/TPU decode)")
+                   "(enables parallel/device decode)")
     p.add_argument("--hf2-block", default=None, metavar="SIZE",
                    help="Input bytes per .hf2 block (units as -b; default: "
                    "256 with --device, 64Ki on host)")
@@ -93,10 +93,11 @@ def _build_parser() -> argparse.ArgumentParser:
                    "pass 1 (Laplace-smoothed tree; output stays exactly "
                    "decodable, ratio typically <1%% worse)")
     p.add_argument("--device", action="store_true",
-                   help="Route block packing through the JAX/TPU kernels")
+                   help="Route block packing and .hf2 decode through the "
+                   "JAX device kernels")
     p.add_argument("--reindex", action="store_true",
                    help="Re-index an existing .hff into .hf2 without "
-                   "recompressing (enables parallel/TPU decode)")
+                   "recompressing (enables parallel/device decode)")
     p.add_argument("--no-auto-index", action="store_true",
                    help="Disable the automatic block-index sidecar for "
                    "large .hff decodes (see io.stream.AUTO_INDEX_MIN)")
@@ -126,37 +127,35 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="Print per-stage timings; with TRACE_DIR also write "
                    "a jax profiler trace there")
     p.add_argument("--warmup", action="store_true",
-                   help="One-time device warmup: build the native library, "
-                   "pay the Mosaic compile-helper cold start, and compile "
-                   "the flagship kernels at the default shapes into the "
-                   "persistent cache (later --device runs skip the stall)")
+                   help="One-time device warmup: build the native library "
+                   "and compile the device programs at the default shapes "
+                   "into the persistent cache (later --device runs skip "
+                   "the compile)")
     p.add_argument("SRC_FILE", nargs="?", default=None)
     p.add_argument("DST_FILE", nargs="?", default="./SRC_FILE.hff")
     return p
 
 
 def _warmup() -> int:
-    """``python -m tpuhuff --warmup`` (VERDICT r4 #10): the first device
-    use on a fresh machine pays the remote Mosaic compile-helper's cold
-    start (measured 57-280 s on the dev rig) plus each program's compile;
-    this pays them ONCE, up front, visibly, into the persistent cache."""
+    """``python -m tpuhuff --warmup``: build the native library and compile
+    the device programs at their default shapes into the persistent cache,
+    once, up front.  Any failing step fails the command."""
     import numpy as np
 
     def step(label, fn):
         t0 = time.perf_counter()
-        try:
-            out = fn()
-            print(f"  {label}: ok ({time.perf_counter() - t0:.1f}s)")
-            return out
-        except Exception as e:  # noqa: BLE001 — warmup is best-effort
-            print(f"  {label}: skipped ({type(e).__name__}: {e})")
-            return None
+        out = fn()
+        print(f"  {label}: ok ({time.perf_counter() - t0:.1f}s)")
+        return out
 
     print("tpuhuff warmup:")
     from .. import native
 
-    step("native library build", lambda: native.available() or
-         (_ for _ in ()).throw(RuntimeError("compiler unavailable")))
+    def build():
+        if not native.available():
+            raise RuntimeError("native library build failed (g++ missing?)")
+
+    step("native library build", build)
     from ..cache import enable_compile_cache
 
     enable_compile_cache()
@@ -164,13 +163,6 @@ def _warmup() -> int:
     import jax.numpy as jnp
 
     print(f"  backend: {jax.default_backend()}")
-
-    def helper():
-        from ..kernels.histogram import histogram
-
-        return int(histogram(jnp.zeros(2 << 20, jnp.uint8))[0])
-
-    step("compile-helper cold start (one-time per session)", helper)
 
     def roundtrip():
         import tempfile
@@ -180,7 +172,7 @@ def _warmup() -> int:
         )
 
         rng = np.random.default_rng(42)
-        text = (b"warmup corpus for the flagship kernel shapes " * 4096)
+        text = (b"warmup corpus for the default device program shapes " * 4096)
         data = bytearray((text * (((8 << 20) // len(text)) + 1))[: 8 << 20])
         idx = rng.integers(0, len(data), len(data) // 64)
         for i in idx:
@@ -194,6 +186,9 @@ def _warmup() -> int:
             read_decompress_write_hf2(os.path.join(td, "w.hf2"),
                                       os.path.join(td, "w.out"),
                                       device=True)
+            with open(os.path.join(td, "w.out"), "rb") as f:
+                if f.read() != bytes(data):
+                    raise RuntimeError("device .hf2 roundtrip mismatch")
 
     step("device .hf2 roundtrip (8 MiB, real writer/reader programs)",
          roundtrip)
@@ -209,7 +204,7 @@ def _warmup() -> int:
             encode_blocks, make_canonical_encode_tables, make_encode_tables,
         )
 
-        text = (b"warmup corpus for the flagship kernel shapes " * 1024)
+        text = (b"warmup corpus for the default device program shapes " * 1024)
         tree = canonicalize(HuffTree.from_weights(ByteWeights.from_bytes(
             bytes(text))))
         lens_t, codes_t = tree.encode_tables()
@@ -224,9 +219,9 @@ def _warmup() -> int:
             with_miss=True).compile()
 
     step("64 MiB-chunk encode program (AOT, no upload)", big_shapes)
-    print("warmup complete — cached programs persist in .jax_cache; a "
-          "different tree's max code length still costs one small "
-          "program compile (seconds, helper now warm)")
+    print("warmup complete — cached programs persist in the compile cache; "
+          "a different tree's max code length still costs one small "
+          "program compile")
     return 0
 
 
@@ -273,7 +268,12 @@ def main(argv=None) -> int:
     try:
         block_size = parse_block_size(args.block_size)
         if args.warmup:
-            return _warmup()
+            try:
+                return _warmup()
+            except Exception as e:  # noqa: BLE001 — report, then fail
+                print(f"Error: warmup failed: {type(e).__name__}: {e}",
+                      file=sys.stderr)
+                return 1
         if args.dataset is not None:
             # config 4: shared-tree (or adaptive) dataset compression
             if args.decompress:
@@ -407,7 +407,7 @@ def main(argv=None) -> int:
         if timer is not None:
             print(timer.report())
         if args.device:
-            # first-use compile stall remedy (VERDICT r4 #10): estimate the
+            # first-use compile stall remedy: estimate the
             # JIT share of the first device call and point at --warmup
             calls = stats.get("device_call_s", [])
             jit_s = 0.0

@@ -4,10 +4,10 @@ Capability match for `/root/reference/huff_coding/src/comp.rs` (L3 in SURVEY
 §1): ``compress`` (`comp.rs:353-356`), ``compress_with_tree``
 (`comp.rs:419-451`), ``decompress`` (`comp.rs:487-519`).
 
-TPU-first redesign: the reference's bit-serial pack loop (`comp.rs:424-447`)
+Data-parallel redesign: the reference's bit-serial pack loop (`comp.rs:424-447`)
 and per-bit tree walk (`comp.rs:493-516`) become vectorized array programs.
 This module holds the *host* (numpy) implementations — the exact same
-expand/scan/pack formulation the Pallas kernels use on device
+expand/scan/pack formulation the kernels use on device
 (:mod:`tpuhuff.kernels`) — plus the generic-letter slow path.  The C++ native
 runtime (:mod:`tpuhuff.native`) plugs in below numpy for single-stream
 latency; all three produce identical bytes.
@@ -148,8 +148,8 @@ class PyDfaDecoder:
     Carries the walker state across :meth:`feed` calls so streaming callers
     decode in bounded memory — the python analogue of the reference's
     persistent ``current_branch`` across read blocks
-    (`huff/src/comp.rs:240`).  The C++/TPU paths own the hot decode; this
-    exists so a TPU host without a compiler still streams correctly.
+    (`huff/src/comp.rs:240`).  The C++ and device paths own the hot decode;
+    this exists so a host without a compiler still streams correctly.
     """
 
     def __init__(self, tree: HuffTree):

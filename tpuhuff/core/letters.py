@@ -1,6 +1,6 @@
 """Letter types: what can be a symbol in a Huffman tree.
 
-TPU-native re-design of the reference's letter traits
+Array-oriented re-design of the reference's letter traits
 (`/root/reference/huff_coding/src/tree/letter.rs:13-60`):
 
 * ``HuffLetter``   -> any hashable Python value can be a letter (the reference

@@ -1,7 +1,7 @@
 """Huffman tree: flat-array nodes, reference-faithful construction, bit serde.
 
-TPU-first redesign of `/root/reference/huff_coding/src/tree/` — arrays instead
-of boxed node graphs (SURVEY §7 "arrays, not trees"):
+Array-first redesign of the reference's `huff_coding/src/tree/` — arrays
+instead of boxed node graphs (SURVEY §7 "arrays, not trees"):
 
 * Nodes live in flat numpy-friendly arrays (``left``/``right``/``letters``/
   ``weights``); a leaf has ``left == right == -1``.  The reference's
@@ -22,7 +22,7 @@ of boxed node graphs (SURVEY §7 "arrays, not trees"):
   exact-consumption checks.
 
 The dense LUT export (:meth:`HuffTree.encode_tables`) and the byte-driven DFA
-(:meth:`HuffTree.decode_dfa`) are the array forms the TPU kernels and the C++
+(:meth:`HuffTree.decode_dfa`) are the array forms the device kernels and the C++
 runtime consume; the bit-serial walks of the reference (`comp.rs:493-516`)
 never run on the hot path here.
 """
@@ -176,7 +176,7 @@ class HuffTree:
     Node ``i`` has ``letters[i]`` (``None`` for a joint node), ``weights[i]``,
     and children ``left[i]``/``right[i]`` (``-1`` for leaves).  ``root`` is the
     root node index.  Functional equivalent of the reference ``HuffTree``
-    (`tree_inner.rs:193-196`) plus the dense-table exports the TPU/C++ paths
+    (`tree_inner.rs:193-196`) plus the dense-table exports the device/C++ paths
     need.
     """
 
@@ -306,7 +306,7 @@ class HuffTree:
         as state 0 (a lone-leaf root is handled by callers separately).  For
         each (state, input byte) the table stores: next state, number of
         letters emitted (0..8), and the emitted u8 letters.  One lookup
-        consumes 8 compressed bits — the vector/TPU replacement for the
+        consumes 8 compressed bits — the vectorized replacement for the
         reference's per-bit pointer chase (`comp.rs:493-516`).
 
         Returns ``(next_state[S,256] int16, emit_count[S,256] uint8,

@@ -11,10 +11,10 @@ Capability match for `/root/reference/huff_coding/src/weights.rs`:
   (`weights.rs:222-235,374-388`), iteration in ascending byte order skipping
   zero bins (`weights.rs:396-442`).
 
-The TPU-first redesign: counting is a vectorized ``numpy.bincount`` on host
+The data-parallel redesign: counting is a vectorized ``numpy.bincount`` on host
 (the reference's 12-thread ``threaded_from_bytes`` at `weights.rs:293-319` is
 a data-parallel split+merge; bincount saturates host memory bandwidth without
-threads) and a Pallas/XLA one-hot histogram on device
+threads) and an XLA one-hot histogram on device
 (:mod:`tpuhuff.kernels.histogram`), merged across chips with ``psum``.
 """
 

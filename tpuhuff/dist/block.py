@@ -1,13 +1,13 @@
 """Block-parallel encode pipeline under ``shard_map``.
 
-The TPU-native version of the reference CLI's two-pass streaming compress
+The data-parallel version of the reference CLI's two-pass streaming compress
 (`/root/reference/huff/src/comp.rs:32-74`):
 
-* pass 1 — per-chip histograms of the local blocks, merged with a single
-  ``psum`` over the mesh (ICI), replacing the thread-join+add merge
+* pass 1 — per-device histograms of the local blocks, merged with a single
+  ``psum`` over the mesh, replacing the thread-join+add merge
   (`weights.rs:306-318`).  The tree itself is built on host from the 256
   counts (O(k log k), k<=256 — microseconds, `tree_inner.rs:289-303`).
-* pass 2 — every chip packs its blocks with the broadcast LUTs
+* pass 2 — every device packs its blocks with the broadcast LUTs
   (:func:`tpuhuff.kernels.encode_blocks`); per-block bit lengths come back
   with the words, and the host (or the ``.hf2`` writer) does the ordered
   bit-carry concatenation — correctly, unlike the reference's seek-back
@@ -16,6 +16,7 @@ The TPU-native version of the reference CLI's two-pass streaming compress
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import jax
@@ -67,15 +68,24 @@ def _hist_shard(local: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
     return jax.lax.psum(h, BLOCK_AXIS)
 
 
+# Each sharded program is built once per mesh and static configuration: a
+# fresh ``jax.jit(shard_map(...))`` per call would trace, lower and compile
+# anew on every call.
+
+
+@functools.lru_cache(maxsize=None)
+def _hist_program(mesh: Mesh):
+    return jax.jit(jax.shard_map(
+        _hist_shard, mesh=mesh,
+        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS)), out_specs=P(),
+    ))
+
+
 def sharded_histogram(
     blocks: jnp.ndarray, valid_lens: jnp.ndarray, mesh: Mesh
 ) -> np.ndarray:
     """Global 256-bin histogram of (B, N) blocks sharded over the mesh."""
-    fn = jax.shard_map(
-        _hist_shard, mesh=mesh,
-        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS)), out_specs=P(),
-    )
-    return np.asarray(jax.jit(fn)(blocks, valid_lens))
+    return np.asarray(_hist_program(mesh)(blocks, valid_lens))
 
 
 def sharded_count_missing(
@@ -85,25 +95,20 @@ def sharded_count_missing(
 
     The sharded twin of :func:`tpuhuff.kernels.encode.count_missing` — the
     guard for the silent missing-letter case (`comp.rs:427-432`)."""
-    from ..kernels.encode import _auto_gather_free, lut_lens
+    return int(_missing_program(mesh)(blocks, valid_lens, lens_lut))
 
-    gf = _auto_gather_free(None)
+
+@functools.lru_cache(maxsize=None)
+def _missing_program(mesh: Mesh):
+    from ..kernels.encode import _count_missing
 
     def shard(local, valid, ll):
-        idx = local.astype(jnp.int32)
-        lens = lut_lens(idx, ll) if gf else jnp.take(ll, idx, axis=0)
-        N = local.shape[-1]
-        miss = jnp.where(
-            jnp.arange(N, dtype=jnp.int32)[None, :] < valid[:, None],
-            (lens == 0).astype(jnp.int32), 0,
-        )
-        return jax.lax.psum(jnp.sum(miss), BLOCK_AXIS)
+        return jax.lax.psum(_count_missing(local, ll, valid), BLOCK_AXIS)
 
-    fn = jax.shard_map(
+    return jax.jit(jax.shard_map(
         shard, mesh=mesh,
         in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P()), out_specs=P(),
-    )
-    return int(jax.jit(fn)(blocks, valid_lens, lens_lut))
+    ))
 
 
 def sharded_encode(
@@ -116,33 +121,15 @@ def sharded_encode(
     ``check_missing`` (default on): counts valid bytes with no code and
     raises :class:`CompressError` instead of silently dropping them
     (reference `comp.rs:427-432`).  The count rides the encode program
-    (``with_miss`` — free in the fused Pallas kernel, one fused LUT pass
-    elsewhere) with a ``psum`` across the mesh; no separate dispatch.
+    (``with_miss`` — one more lookup pass in the same program) with a
+    ``psum`` across the mesh; no separate dispatch.
     :func:`encode_pipeline` passes False — its histogram-vs-LUT host
     check already guarantees coverage.
     """
-    def shard(local, valid, ll, al, *canon):
-        kw = {"full_alphabet": full_alphabet}
-        if max_code_len is not None:
-            kw["max_code_len"] = max_code_len
-        if canon:
-            kw["canon_tables"] = canon
-        if check_missing:
-            words, bits, miss = encode_blocks(local, ll, al, valid,
-                                              with_miss=True, **kw)
-            return words, bits, jax.lax.psum(miss, BLOCK_AXIS)
-        return encode_blocks(local, ll, al, valid, **kw)
-
     canon = tuple(canon_tables) if canon_tables is not None else ()
-    out_specs = ((P(BLOCK_AXIS), P(BLOCK_AXIS), P()) if check_missing
-                 else (P(BLOCK_AXIS), P(BLOCK_AXIS)))
-    fn = jax.shard_map(
-        shard,
-        mesh=mesh,
-        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(), P()) + (P(),) * len(canon),
-        out_specs=out_specs,
-    )
-    out = jax.jit(fn)(blocks, valid_lens, lens_lut, acodes_lut, *canon)
+    fn = _encode_program(mesh, max_code_len, len(canon), check_missing,
+                         full_alphabet)
+    out = fn(blocks, valid_lens, lens_lut, acodes_lut, *canon)
     if check_missing:
         words, bits, miss = out
         if int(miss):
@@ -155,98 +142,67 @@ def sharded_encode(
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _encode_program(mesh: Mesh, max_code_len: int | None, n_canon: int,
+                    check_missing: bool, full_alphabet: bool):
+    def shard(local, valid, ll, al, *canon):
+        kw = {"full_alphabet": full_alphabet}
+        if max_code_len is not None:
+            kw["max_code_len"] = max_code_len
+        if canon:
+            kw["canon_tables"] = canon
+        if check_missing:
+            words, bits, miss = encode_blocks(local, ll, al, valid,
+                                              with_miss=True, **kw)
+            return words, bits, jax.lax.psum(miss, BLOCK_AXIS)
+        return encode_blocks(local, ll, al, valid, **kw)
+
+    out_specs = ((P(BLOCK_AXIS), P(BLOCK_AXIS), P()) if check_missing
+                 else (P(BLOCK_AXIS), P(BLOCK_AXIS)))
+    return jax.jit(jax.shard_map(
+        shard,
+        mesh=mesh,
+        in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(), P()) + (P(),) * n_canon,
+        out_specs=out_specs,
+    ))
+
+
 def sharded_decode_blocks(
     rows: jnp.ndarray, bit0: jnp.ndarray, nbits: jnp.ndarray, tree,
-    block_len: int, mesh: Mesh, unroll: int | None = None,
+    block_len: int, mesh: Mesh,
 ) -> jnp.ndarray:
     """Block-parallel decode across the mesh (config-3's decode side).
 
     ``rows`` (B, W) u32 per-block word rows (``payload_to_lane_words``
     layout), sharded over ``BLOCK_AXIS``; decode tables replicate.  Every
-    chip runs the canonical-ladder decoder on its blocks (the fused Pallas
-    kernel on TPU, the XLA scan elsewhere); returns (B, block_len) uint8
-    with the same sharding.  Non-canonical (foreign, e.g. reference-built
-    ``tree_inner.rs:422-440``) trees take the general interval-search
-    kernel instead (r4, VERDICT r3 missing #3) — same contract, ~2.7x
-    slower per symbol (PERF_NOTES r3 roofline).  B and the per-shard block
-    count must be multiples of 8*128 for the Pallas route.
+    device decodes its blocks with the one-device program
+    (:func:`tpuhuff.kernels.decode.decode_blocks_device`), for canonical and
+    foreign (e.g. reference-built, ``tree_inner.rs:422-440``) trees alike;
+    returns (B, block_len) uint8 with the same sharding.
     """
-    from ..kernels.decode import (
-        decode_blocks_canonical, decode_blocks_device,
-        make_canonical_decode_tables, make_decode_tables,
-    )
+    from ..kernels.decode import make_decode_tables
 
-    canon = make_canonical_decode_tables(tree)
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    if unroll is None:
-        unroll = next(s for s in ((16, 8, 4, 2, 1) if on_tpu else (1,))
-                      if block_len % s == 0)
+    tables, statics = make_decode_tables(tree)
+    fn = _decode_program(mesh, block_len, **statics)
+    return fn(rows, bit0, nbits, *tables)
 
-    if canon is not None:
-        ub, dd, perm4, ml = canon
-        if on_tpu:
-            from ..kernels.pallas_decode import (
-                decode_rows_fused, make_fused_tables,
-            )
 
-            t1, t2, t3 = make_fused_tables(ub, dd, perm4)
+@functools.lru_cache(maxsize=None)
+def _decode_program(mesh: Mesh, block_len: int, canonical: bool,
+                    max_len: int, levels: int):
+    from ..kernels.decode import decode_blocks_device
 
-            def shard(r, b0, nb, a1, a2, a3):
-                return decode_rows_fused(r, b0, nb, a1, a2, a3, ml,
-                                         block_len, unroll)
+    def shard(r, b0, nb, a1, a2, a3):
+        return decode_blocks_device(r, b0, nb, a1, a2, a3,
+                                    block_len=block_len, canonical=canonical,
+                                    max_len=max_len, levels=levels)
 
-            tabs = (t1, t2, t3)
-        else:
-            def shard(r, b0, nb, a1, a2, a3):
-                out = decode_blocks_canonical(r, b0, nb, a1, a2, a3, ml,
-                                              block_len, unroll)
-                return out.astype(jnp.uint8)
-
-            tabs = (ub, dd, perm4)
-    else:
-        thr, sym4, len4 = make_decode_tables(tree)
-        lens_lut, _ = tree.encode_tables()
-        n_leaves = int((np.asarray(lens_lut) > 0).sum())
-        levels = max(1, (max(n_leaves, 2) - 1).bit_length())
-        # the tree's real max code length (NOT initial=32, which made the
-        # bound a no-op and disabled the roll/window-select pruning —
-        # ADVICE r4 #1); 32 only as the empty-code-set fallback
-        msb_arr = np.asarray(lens_lut)
-        msb = int(msb_arr.max(initial=0)) or 32
-        if on_tpu:
-            from ..kernels.pallas_decode import (
-                decode_rows_fused_general, make_general_fused_tables,
-            )
-
-            t1, t2, t3 = make_general_fused_tables(thr, sym4, len4)
-
-            def shard(r, b0, nb, a1, a2, a3):
-                return decode_rows_fused_general(r, b0, nb, a1, a2, a3,
-                                                 block_len, unroll,
-                                                 levels=levels,
-                                                 max_sym_bits=msb)
-
-            tabs = (t1, t2, t3)
-        else:
-            jthr = jnp.asarray(np.asarray(thr), jnp.uint32)
-
-            def shard(r, b0, nb, a1, a2, a3):
-                out = decode_blocks_device(r, b0, nb, a1, a2, a3,
-                                           block_len, unroll)
-                return out.astype(jnp.uint8)
-
-            tabs = (jthr, sym4, len4)
-
-    fn = jax.shard_map(
+    return jax.jit(jax.shard_map(
         shard, mesh=mesh,
         in_specs=(P(BLOCK_AXIS), P(BLOCK_AXIS), P(BLOCK_AXIS),
                   P(), P(), P()),
         out_specs=P(BLOCK_AXIS),
-    )
-    return jax.jit(fn)(rows, bit0, nbits, *tabs)
+    ))
 
 
 def encode_pipeline(

@@ -12,10 +12,9 @@ histogram+encode pipeline") generalizes that to MANY files/shards:
   The per-file two-pass cost (pass 1 ~= pass 2 on device, PERF_NOTES r4)
   disappears: pass 1 is paid once per dataset, not once per file.
 * **Adaptive mode** (``adaptive=True``): shard ``k``'s exact histogram is
-  gathered DURING its encode — on TPU by the fused kernel's ``hist_data``
-  MXU operand riding the VPU-bound encode
-  (`kernels/pallas_encode2._encode_kernel_fused`), on host by the threaded
-  C++ count over the already-loaded chunk — and becomes shard ``k+1``'s
+  gathered DURING its encode — on device by the encode program's
+  ``hist_data`` operand, on host by the threaded C++ count over the
+  already-loaded chunk — and becomes shard ``k+1``'s
   tree.  Still single-pass per shard; the table tracks drifting data at
   zero extra passes.  Every container carries its own tree, so shards stay
   independently decodable.
@@ -49,11 +48,9 @@ def tree_from_counts(counts: np.ndarray, device: bool = True,
 
     Device trees are limited to **16** bits by default (not the u32-lane
     32): smoothing gives rare bytes count 1, whose unconstrained codes on
-    a ~100 MB shard run ~26 bits — past the fused encode kernel's
-    pair-merge bound (``2*max_len <= 32``, `pallas_encode2`) and widening
-    the decode ladder.  Package-merge under the 16 cap costs ~nothing on
-    those near-zero-probability symbols and keeps every shard on the fused
-    kernels — the TPU-first trade."""
+    a ~100 MB shard run ~26 bits, widening the encode and decode ladders.
+    Package-merge under the 16 cap costs ~nothing on those
+    near-zero-probability symbols."""
     from ..core.canonical import build_tree_for_device, canonicalize
 
     c = np.asarray(counts, dtype=np.int64)
@@ -82,7 +79,7 @@ def build_shared_tree(
     the table converges long before the full pass on stationary data.
     ``max_bytes_per_file`` caps the scan per file (e.g. probe only the
     first 64 MiB of each shard).  ``device=True`` length-limits codes to
-    32 bits so the TPU kernels apply (identical trees off-device unless
+    32 bits so the device kernels apply (identical trees off-device unless
     the data is pathological, PARITY.md)."""
     if isinstance(paths, (str, os.PathLike)):
         paths = [paths]
@@ -140,7 +137,7 @@ def compress_dataset(
     Shared mode then single-pass-encodes every shard with that tree
     (``read_compress_write_hf2(tree=...)``); ``adaptive=True`` instead
     refreshes the table per shard from the histogram gathered DURING the
-    previous shard's encode (the fused ``hist_data`` operand on TPU).
+    previous shard's encode (the encode program's ``hist_data`` operand).
 
     ``stats`` (optional dict) receives ``tree_builds`` (how many trees
     were constructed), ``bytes`` and ``ratio``.

@@ -15,7 +15,7 @@ Capability match for L4 of the reference (`/root/reference/huff/src/comp.rs`):
   of the reference's persistent walker state, `comp.rs:240`).
 * :func:`read_compress_write_hf2` / :func:`read_decompress_write_hf2` —
   the block-indexed container: same tree + payload, plus per-block bit
-  offsets enabling parallel (threaded / TPU) decode.
+  offsets enabling parallel (threaded / device) decode.
 
 Encode backend: C++ native when available, numpy otherwise; ``device=True``
 routes block packing through the JAX kernels.
@@ -486,20 +486,18 @@ def read_compress_write(
         dst.write(bytes([(tree_padding << 4) | data_padding]))
 
 
-def _device_encoder(tree: HuffTree, block_len: int | None = None):
+def _device_encoder(tree: HuffTree):
     """Chunk encoder routed through the JAX device pipeline.
 
-    When the tree's codes happen to be canonical (always true for the
-    `.hf2` path and any canonicalized tree) the canonical ladder tables are
-    passed through, which on TPU also enables the fused Pallas VMEM kernel
-    (`kernels/pallas_encode2.py`).  Default block length is per path:
-    256 when the Pallas route will engage (session-13 optimum for that
-    kernel), 512 for the XLA merge (session-9 optimum)."""
+    When the tree's codes happen to be canonical (any canonicalized tree)
+    the canonical ladder tables are passed through, which selects the
+    faster lookup (:func:`tpuhuff.kernels.encode.encode_blocks`).
+    Kernel lanes are ``DEVICE_HF2_BLOCK`` bytes, the shape measured on the
+    card (PERF.md); the stitched ``.hff`` stream does not depend on it."""
     from ..dist import stitch_words
     from ..dist.block import pad_to_blocks
     from ..kernels.encode import (
-        _auto_pallas, encode_blocks,
-        make_canonical_encode_tables, make_encode_tables,
+        encode_blocks, make_canonical_encode_tables, make_encode_tables,
     )
 
     import jax.numpy as jnp
@@ -510,11 +508,8 @@ def _device_encoder(tree: HuffTree, block_len: int | None = None):
     tabs = make_canonical_encode_tables(tree)
     canon_tabs = tabs[:4] if tabs is not None else None
     full_alpha = bool(tabs[5]) if tabs is not None else False
-    if block_len is None:
-        pallas_route = (
-            _auto_pallas(None) and canon_tabs is not None and 2 * ml <= 32
-        )
-        block_len = 256 if pallas_route else 512
+
+    block_len = DEVICE_HF2_BLOCK
 
     def encode(data: np.ndarray, pad_to_bytes: int | None = None
                ) -> tuple[bytes, int]:
@@ -532,7 +527,7 @@ def _device_encoder(tree: HuffTree, block_len: int | None = None):
         # missing-letter guard (`comp.rs:427-432`): possible only if the
         # file changed between the histogram pass and this one — the device
         # kernels would otherwise drop the byte's bits silently.  It rides
-        # the encode program (free on the fused Pallas route).
+        # the encode program.
         words, bits, miss = encode_blocks(jblocks, dl, da, jvalid,
                                           max_code_len=ml,
                                           canon_tables=canon_tabs,
@@ -596,7 +591,7 @@ def _sidecar_matches(src_path: str, sidecar: str) -> bool:
     bits, the payload bit count, and 16 stratified 4 KiB payload regions
     (first, last, and 14 evenly spread — seeks, not a full read).
 
-    KNOWN LIMIT (ADVICE r4 #4): this is sampling, not a proof — a
+    KNOWN LIMIT: this is sampling, not a proof — a
     same-size same-tree replacement differing ONLY between sampled
     regions would pass.  The failure then stays detectable downstream:
     the sidecar's CRC column was computed from the ORIGINAL decode, so
@@ -637,7 +632,7 @@ def read_decompress_write(
 ) -> None:
     """Decompress a ``.hff`` file (`huff/src/comp.rs:79-157`), streaming.
 
-    ``auto_index`` (r4, VERDICT r3 #4): a reference-format ``.hff``
+    ``auto_index``: a reference-format ``.hff``
     carries no block boundaries, forcing a bit-serial walk.  By default,
     when the native runtime is up and the payload is large
     (>= ``AUTO_INDEX_MIN``), the file is transcoded ONCE into a sidecar
@@ -680,7 +675,7 @@ def read_decompress_write(
                     pass
         # no (usable) sidecar: the r5 fused first decode — ONE DFA pass
         # emits the decoded output, the block index AND the CRC column,
-        # then the sidecar is a verbatim payload copy (VERDICT r4 #5;
+        # then the sidecar is a verbatim payload copy (
         # previously: index pass + copy pass + decode-from-sidecar pass).
         # Unique tmp: concurrent decoders must not interleave writes into
         # one file (a corrupt promoted sidecar would poison later decodes).
@@ -783,9 +778,10 @@ def read_decompress_write(
 # ---------------------------------------------------------------------------
 # .hf2 — block-indexed container
 # ---------------------------------------------------------------------------
-DEVICE_HF2_BLOCK = 256   # TPU decode sweet spot (session 9: ~7 GB/s, 0.8%
-# index overhead with the v2 u16 table); host path favors big blocks (the
-# per-block Python/C++ dispatch dominates below ~64 KiB)
+# default .hf2 block lengths (a format choice: the container records it).
+# Small blocks give the device decoder many independent lanes; the host
+# path favors big blocks (per-block dispatch dominates below ~64 KiB)
+DEVICE_HF2_BLOCK = 256
 HOST_HF2_BLOCK = 65536
 
 
@@ -825,23 +821,22 @@ def _device_block_encoder(tree: HuffTree, block_len: int,
                           collect_hist: bool = False):
     """Device encoder for ``.hf2`` block groups.
 
-    Container blocks are decoupled from kernel lanes (VERDICT r1 #4): each
-    ``block_len`` block is encoded as ``block_len // lane`` independent
-    lanes of ``lane`` bytes (the kernels' VMEM sweet spot), and the lane
-    streams are bit-concatenated in order — bit-identical to encoding the
-    whole block sequentially, since prefix-code concatenation is
-    associative.  Per-block bit lengths are lane sums.
+    Container blocks are decoupled from kernel lanes: each ``block_len``
+    block is encoded as ``block_len // lane`` independent lanes of at most
+    ``DEVICE_HF2_BLOCK`` bytes (the encode shape measured on the card), and
+    the lane streams are bit-concatenated in order — bit-identical to
+    encoding the whole block sequentially, since prefix-code concatenation
+    is associative.  Per-block bit lengths are lane sums.
 
     ``collect_hist`` (config 4): the chunk's exact 256-bin histogram rides
-    the encode program (the fused kernel's ``hist_data`` MXU operand on
-    TPU) and ``collect`` returns it as a fourth element — the single-pass
-    adaptive tree refresh of :func:`tpuhuff.io.dataset.compress_dataset`.
+    the encode program (``hist_data``) and ``collect`` returns it as a
+    fourth element — the single-pass adaptive tree refresh of
+    :func:`tpuhuff.io.dataset.compress_dataset`.
     """
     from ..dist import stitch_words
     from ..dist.block import pad_to_blocks
     from ..kernels.encode import (
-        PALLAS_MAX_BLOCK, encode_blocks,
-        make_canonical_encode_tables, make_encode_tables,
+        encode_blocks, make_canonical_encode_tables, make_encode_tables,
     )
 
     import jax.numpy as jnp
@@ -852,10 +847,8 @@ def _device_block_encoder(tree: HuffTree, block_len: int,
     tabs = make_canonical_encode_tables(tree)
     canon_tabs = tabs[:4] if tabs is not None else None
     full_alpha = bool(tabs[5]) if tabs is not None else False
-    # largest power-of-two divisor of block_len, capped at the kernel optimum
-    lane = block_len & -block_len
-    lane = min(lane, DEVICE_HF2_BLOCK if canon_tabs is not None else 512,
-               PALLAS_MAX_BLOCK)
+    # largest power-of-two divisor of block_len, capped at the measured shape
+    lane = min(block_len & -block_len, DEVICE_HF2_BLOCK)
     L = block_len // lane if block_len % lane == 0 else 1
     if L == 1:
         lane = block_len
@@ -863,7 +856,7 @@ def _device_block_encoder(tree: HuffTree, block_len: int,
     def submit(data: np.ndarray, nb: int):
         """Dispatch one chunk's device encode WITHOUT syncing (JAX dispatch
         is async): H2D + kernel run while the caller stitches/writes the
-        previous chunk (r4 double-buffered file path, VERDICT r3 #5)."""
+        previous chunk (double-buffered file path)."""
         lanes, valid, _ = pad_to_blocks(data, lane, 1)
         want = nb * L
         if lanes.shape[0] < want:  # final block's all-padding lanes
@@ -872,10 +865,9 @@ def _device_block_encoder(tree: HuffTree, block_len: int,
                 [lanes, np.zeros((pad_rows, lane), np.uint8)], axis=0)
             valid = np.concatenate([valid, np.zeros(pad_rows, np.int32)])
         jl, jv = jnp.asarray(lanes), jnp.asarray(valid)
-        # the missing-letter guard rides the encode program (free on the
-        # fused Pallas route, one fused LUT pass elsewhere) instead of a
+        # the missing-letter guard rides the encode program instead of a
         # separate count_missing dispatch; ditto the adaptive-refresh
-        # histogram (hist_data — the fused kernel's MXU operand)
+        # histogram (hist_data)
         out = encode_blocks(jl, dl, da, jv, max_code_len=ml,
                             canon_tables=canon_tabs,
                             full_alphabet=full_alpha,
@@ -930,8 +922,8 @@ def read_compress_write_hf2(
     O(chunk_bytes), independent of file size.
 
     ``canonical`` (default): assign canonical codes — same code lengths,
-    hence identical compressed size, but the device decoder's fast ladder
-    path applies (`kernels.decode.decode_blocks_canonical`).  Host and
+    hence identical compressed size, but the device codec's ladder
+    lookups apply (`kernels.decode.make_decode_tables`).  Host and
     device writers canonicalize identically, so their outputs stay
     byte-equal at equal ``block_len``.
 
@@ -947,9 +939,8 @@ def read_compress_write_hf2(
     ``check`` (r5, default on): write the per-span CRC32 integrity column
     (flags bit 1 — ``io.hff`` module docstring) so decoders detect payload
     corruption instead of emitting silently-wrong bytes like the reference
-    (`comp.rs:487-519`).  Measured cost (PERF_NOTES r5): < 0.01% size,
-    +0.3% write time; read-side verification ~5-7% on the 2-vCPU dev box
-    (work-conserved floor), hidden behind the decode by the verify
+    (`comp.rs:487-519`).  The column costs < 0.01% of the size; read-side
+    verification is hidden behind the decode by the verify
     pipeline on >= 4-core hosts.
 
     ``tree`` (r5, config 4): a pre-built shared tree — pass 1 is SKIPPED
@@ -962,7 +953,7 @@ def read_compress_write_hf2(
     ``device=True`` its code lengths must be <= 32 (``build_tree_for_device``
     guarantees this).  ``canonical`` still applies (idempotent on canonical
     trees).  ``collect_hist``: additionally return the file's exact 256-bin
-    histogram, gathered DURING the encode pass (the fused kernel's MXU
+    histogram, gathered DURING the encode pass (the encode program's
     ``hist_data`` operand on device, the threaded C++ histogram on host) —
     the adaptive per-shard tree refresh rides the encode instead of paying
     a separate pass.
@@ -983,10 +974,9 @@ def read_compress_write_hf2(
     with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
         # pass 1: streamed histogram -> ONE whole-file tree (SKIPPED when a
         # shared `tree` arrives — config 4's single-pass path).  Device mode
-        # routes chunks through the Pallas/XLA histogram with the same
-        # double-buffered submit pattern as pass 2 (the 40 GB/s G=8 kernel
-        # beats host counting wherever H2D is not the bottleneck); the
-        # accumulation stays on device until one final 256-int transfer.
+        # routes chunks through the device histogram with the same
+        # double-buffered submit pattern as pass 2; the accumulation stays
+        # on device until one final 256-int transfer.
         samp = max(1, int(hist_sample))
 
         def sampled(piece: bytes) -> bytes:
@@ -1010,7 +1000,7 @@ def read_compress_write_hf2(
                 # partial sum < 2^30 by flushing the accumulator to the
                 # host int64 total before 2^29 accumulated SAMPLED bytes
                 # (not a fixed chunk count: step tracks --hf2-block and can
-                # exceed 64 MiB — review r4 finding #2 / ADVICE r5 #2),
+                # exceed 64 MiB),
                 # while within-group accumulation stays async on device
                 host_acc = np.zeros(256, dtype=np.int64)
                 acc = None
@@ -1051,10 +1041,9 @@ def read_compress_write_hf2(
                 bw = ByteWeights(bw.counts + 1)
             if device:
                 # device codewords live in u32 lanes: length-limit deep
-                # trees.  An explicit max_code_len (CLI --max-code-len) is
-                # a measured speed/ratio knob: 12 on text-like data costs
-                # ~0.6% ratio and buys ~4% encode (2 fewer ladder levels)
-                # plus tighter decode scan bounds (PERF_NOTES r5).
+                # trees.  An explicit max_code_len (CLI --max-code-len)
+                # trades ratio for fewer ladder levels in encode and
+                # decode.
                 ml_cap = 32 if max_code_len is None else min(max_code_len,
                                                              32)
                 tree, _limited = build_tree_for_device(bw, max_len=ml_cap)
@@ -1082,7 +1071,7 @@ def read_compress_write_hf2(
         left = size
         hist_acc = np.zeros(256, dtype=np.int64) if collect_hist else None
         if enc is not None:
-            # double-buffered device pipeline (r4, VERDICT r3 #5): chunk
+            # double-buffered device pipeline: chunk
             # k+1's read + H2D + kernel dispatch happen while chunk k's
             # words sync back and stitch/write on host — JAX dispatch is
             # async, so the only sync point is the collect
@@ -1409,7 +1398,7 @@ def transcode_hff_to_hf2(
     CRCs of the decoded bytes — the output itself is discarded) and writes
     the identical tree + payload bits wrapped in the block-indexed
     container, integrity column included.  A reference-written file then
-    decodes block-parallel on threads or TPU (the general interval kernel
+    decodes block-parallel on threads or the device (the interval search
     handles its non-canonical tree) with corruption detection the
     reference format lacks.  Streaming: O(chunk) memory + 8 bytes per
     block for the index.
@@ -1628,9 +1617,8 @@ def read_decompress_write_hf2(
         else:
             # CRC verification is pipelined one group deep: group k's
             # spans verify on a worker thread (ctypes releases the GIL)
-            # while group k+1 decodes — on >= 4-core hosts the check hides
-            # entirely behind the decode; on the 2-vCPU dev box it costs
-            # its work-conserved ~10% (PERF_NOTES r5).  Each group's `out`
+            # while group k+1 decodes, so on multi-core hosts the check
+            # hides behind the decode.  Each group's `out`
             # is a fresh buffer, so the worker's view stays valid.
             pool = pending_v = None
             if verifier is not None:

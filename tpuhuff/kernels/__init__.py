@@ -1,15 +1,14 @@
-"""JAX/XLA/Pallas device kernels: histogram, bit-pack encode, decode.
+"""Device kernels: histogram, bit-pack encode, decode.
 
-Backend selection: by default :func:`encode_blocks` auto-routes to the
-fused canonical Pallas VMEM kernel on TPU (when canonical tables are given,
-``max_code_len <= 16``, and the block length fits the VMEM budget —
-``encode.PALLAS_MAX_BLOCK``) and to the pure-XLA doubling merge otherwise.
-``TPUHUFF_BACKEND=xla`` force-disables the Pallas route;
-``TPUHUFF_BACKEND=pallas`` force-enables it (interpret mode off-TPU).
+Each operation has one device route, picked from H100 measurements
+(PERF.md): the nibble one-hot matrix product for the histogram, the XLA
+doubling merge for encode (canonical rank ladder or ``jnp.take`` lookup by
+the tree's shape), and the XLA gather-window scan for decode (canonical
+ladder or interval search by the tree's shape).  The same program runs on
+every platform.
 """
 
 from .encode import (
-    PALLAS_MAX_BLOCK,
     block_bit_lengths,
     count_missing,
     encode_blocks,
@@ -19,7 +18,6 @@ from .encode import (
 from .histogram import histogram
 
 __all__ = [
-    "PALLAS_MAX_BLOCK",
     "block_bit_lengths",
     "count_missing",
     "encode_blocks",

@@ -1,32 +1,27 @@
-"""Device decode: lane-parallel prefix-code decoding in JAX/XLA, gather-free.
+"""Device decode: lane-parallel prefix-code decoding.
 
 The parallel replacement for the reference's bit-serial tree walk
 (`/root/reference/huff_coding/src/comp.rs:487-519`).  A serial prefix-code
 stream cannot be split mid-stream, so parallelism comes from **blocks**: the
 ``.hf2`` container records per-block bit offsets (SURVEY §7 hard part 2),
-and every block becomes a *lane* that decodes independently — hundreds to
-thousands of lanes advance one symbol per step, all vectorized.
+and every block becomes a *lane* that decodes independently.
 
-TPU constraint: gathers are catastrophically slow on this backend (a
-``take_along_axis`` window fetch measured ~0.03 GB/s), so the decoder is
-**fully gather-free**:
+Each lane reads the next 32 bits of its stream as an MSB-aligned window and
+maps it to ``(symbol, code length)`` with one of two leaf searches, chosen by
+the tree's shape in :func:`make_decode_tables`:
 
-* The 32-bit window always reads words 0 and 1 of a per-lane word buffer
-  carried as scan state.  Code lengths are <= 32, so the bit cursor crosses
-  at most one word boundary per step — the buffer is conditionally ROLLED
-  left one word (static concatenate + ``where``), never indexed.
-* Leaf lookup is an 8-level binary search over the 256 sorted interval
-  thresholds, realized as select trees over static strided slices
-  (~250 fused ``where`` ops — the same structure as the encoder's LUT,
-  measured ~50 GB/s).  Intervals work for ANY prefix tree: left-to-right
-  leaves have ascending left-aligned code values partitioning [0, 2^32),
-  so reference-built ``.hff`` trees decode unchanged (no canonical-code
-  assumption).
-* (symbol, length) come from 4-per-word packed tables via 64-entry select
-  trees plus a variable shift.
+* canonical codes (what the ``.hf2`` writers emit): canonical length classes
+  occupy nested value ranges, so a ladder of ``max_len - 1`` compares
+  against the class bounds gives the length and the index offset, and one
+  table gather gives the symbol;
+* any other prefix tree (a reference-built ``.hff``): left-to-right leaves
+  have ascending left-aligned code values partitioning [0, 2^32), so a
+  binary search over the 256 thresholds finds the leaf.
 
-Each step emits exactly one symbol per lane, so the output position is the
-step index — stacked by ``lax.scan``, no scatter.
+Every device runs the same program, :func:`decode_blocks_device`: an XLA
+scan that gathers each lane's next two words at its bit cursor and emits
+one symbol per lane per step.  A hand-written kernel was faster on the
+H100's device clock but slower end to end on the file paths (PERF.md).
 """
 
 from __future__ import annotations
@@ -39,50 +34,107 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.tree import HuffTree
-from .encode import _select_tree
 
-__all__ = ["make_decode_tables", "decode_blocks_device", "payload_to_lane_words"]
+__all__ = [
+    "make_decode_tables",
+    "make_canonical_decode_tables",
+    "decode_blocks_device",
+    "decode_rows_device",
+    "decode_hf2_device",
+    "payload_to_lane_words",
+]
 
 
-def _pack4(vals: np.ndarray) -> np.ndarray:
-    """Pack a (256,) byte-valued table into (64,) u32, 4 entries per word."""
-    v = vals.astype(np.uint32) & 0xFF
-    return v[0::4] | (v[1::4] << 8) | (v[2::4] << 16) | (v[3::4] << 24)
+def make_canonical_decode_tables(tree: HuffTree):
+    """Ladder tables for CANONICAL codes, or None if the tree's codes are
+    not canonical (sorted by (length, letter), numerically increasing —
+    ``core.canonical.canonicalize`` output, flagged in ``.hf2``).
+
+    * ``ub[L-1]`` (u32, left-aligned): exclusive upper bound of all codes of
+      length <= L; ``len(window) = 1 + count over L of (window >= ub)``.
+    * ``dd`` (i32): ladder deltas folding the index offset into the same
+      compares: ``idx = (window >> (32-len)) + dd[0] + sum ind_L * dd[L]``.
+    * ``perm`` (i32[256]): canonical index -> byte.
+
+    Returns numpy ``(ub, dd, perm, max_len)``.
+    """
+    from ..core.canonical import canonical_codes_from_lengths
+
+    codes = tree.read_codes()
+    lengths = [(letter, code.length) for letter, code in codes.items()]
+    if any(l > 32 for _, l in lengths):
+        return None
+    want = canonical_codes_from_lengths(lengths)
+    for letter, code in codes.items():
+        if want[letter] != (code.value, code.length):
+            return None
+    items = sorted(codes.items(), key=lambda kv: (kv[1].length, kv[0]))
+    ml = max(l for _, l in lengths)
+    count = np.zeros(ml + 1, dtype=np.int64)
+    for _, l in lengths:
+        count[l] += 1
+    # canonical first-code per length (RFC1951-style) + cumulative index
+    first = np.zeros(ml + 1, dtype=np.int64)
+    code_v = 0
+    for L in range(1, ml + 1):
+        code_v = (code_v + count[L - 1]) << 1
+        first[L] = code_v
+    cum_before = np.concatenate([[0], np.cumsum(count[1:])])[:-1]  # idx of
+    # first length-L code within the sorted symbol order, index L-1
+    delta = [int(cum_before[L - 1] - first[L]) for L in range(1, ml + 1)]
+    ub = np.zeros(max(ml - 1, 1), dtype=np.uint32)
+    for L in range(1, ml):
+        v = (first[L] + count[L]) << (32 - L)
+        ub[L - 1] = min(v, (1 << 32) - 1)
+    dd = np.zeros(ml, dtype=np.int32)
+    dd[0] = delta[0]
+    for j in range(1, ml):
+        dd[j] = delta[j] - delta[j - 1]
+    perm = np.zeros(256, dtype=np.int32)
+    K = len(items)
+    perm[:K] = [int(letter) for letter, _ in items]
+    if K < 256:
+        perm[K:] = perm[K - 1]
+    return ub, dd, perm, ml
 
 
 def make_decode_tables(tree: HuffTree):
-    """Interval tables, padded to a fixed 256 entries and packed.
+    """Tables for :func:`decode_blocks_device`, one set per leaf search.
 
-    Returns ``(thr u32[256], sym4 u32[64], len4 u32[64])``: ``thr[k]`` is
-    the left-aligned (bit-31) value of leaf k's code in left-to-right
-    order — ascending for any binary tree.  Entries past the real leaf
-    count duplicate the last leaf (the upper-bound search then still
-    resolves to a correct (symbol, length) pair).
+    Returns ``(tables, statics)``: three device arrays and the static
+    keyword arguments that select the leaf search.  Canonical trees get
+    ``(ub u32[32], dd i32[32], perm i32[256])``; any other tree gets
+    ``(thr u32[256], symlen i32[256], unused i32[1])``, where ``thr[k]`` is
+    leaf k's left-aligned code in left-to-right order and ``symlen[k]`` is
+    ``symbol | length << 8``.  Entries past the real leaf count repeat the
+    last leaf, so the search still resolves to a correct pair.
     """
-    codes = tree.read_codes()
+    canon = make_canonical_decode_tables(tree)
+    if canon is not None:
+        ub, dd, perm, ml = canon
+        ub32 = np.zeros(32, np.uint32)
+        ub32[: ub.size] = ub
+        dd32 = np.zeros(32, np.int32)
+        dd32[: dd.size] = dd
+        return ((jnp.asarray(ub32), jnp.asarray(dd32), jnp.asarray(perm)),
+                dict(canonical=True, max_len=int(ml), levels=0))
     items = []
-    for letter, code in codes.items():
+    for letter, code in tree.read_codes().items():
         if code.length > 32:
             raise OverflowError("device decoder supports code lengths <= 32")
-        aligned = code.value << (32 - code.length)
-        items.append((aligned, int(letter), code.length))
+        items.append((code.value << (32 - code.length), int(letter),
+                      code.length))
     items.sort()
     K = len(items)
     thr = np.zeros(256, dtype=np.uint32)
-    syms = np.zeros(256, dtype=np.uint8)
-    lens = np.zeros(256, dtype=np.uint8)
+    symlen = np.zeros(256, dtype=np.int32)
     thr[:K] = [a for a, _, _ in items]
-    syms[:K] = [s for _, s, _ in items]
-    lens[:K] = [l for _, _, l in items]
-    if K < 256:
-        thr[K:] = thr[K - 1]
-        syms[K:] = syms[K - 1]
-        lens[K:] = lens[K - 1]
-    return (
-        jnp.asarray(thr),
-        jnp.asarray(_pack4(syms)),
-        jnp.asarray(_pack4(lens)),
-    )
+    symlen[:K] = [s | (l << 8) for _, s, l in items]
+    thr[K:] = thr[K - 1]
+    symlen[K:] = symlen[K - 1]
+    levels = max(1, (max(K, 2) - 1).bit_length())
+    return ((jnp.asarray(thr), jnp.asarray(symlen), jnp.zeros(1, jnp.int32)),
+            dict(canonical=False, max_len=0, levels=levels))
 
 
 def payload_to_lane_words(
@@ -130,379 +182,87 @@ def payload_to_lane_words(
     return rows, bit0
 
 
-def _select_list(bits, items, lo: int, size: int):
-    """Select ``items[index]`` from a list of same-shaped arrays by the
-    boolean index bits (LSB first); indices past ``len(items)`` are
-    unreachable by construction and clamp to the last item."""
-    if size == 1:
-        return items[min(lo, len(items) - 1)]
-    half = size // 2
-    level = half.bit_length() - 1
-    lo_v = _select_list(bits, items, lo, half)
-    hi_v = _select_list(bits, items, lo + half, half)
-    return jnp.where(bits[level], hi_v, lo_v)
-
-
-def _search_leaf(window: jnp.ndarray, thr: jnp.ndarray):
-    """Upper-bound binary search: idx = count(thr <= window) - 1.
-
-    8 levels; level k compares against a candidate chosen by the k bits
-    already decided — a select tree over the static strided slice
-    ``thr[2^(7-k)::2^(8-k)]``.  Returns the 8 index bits, MSB first.
-    """
-    bits_msb = []  # b0 = idx bit 7 (MSB) ... b7 = idx bit 0
-    for k in range(8):
-        step = 1 << (7 - k)
-        cands = thr[step::2 * step]  # (2^k,) static strided slice
-        if k == 0:
-            cand = cands[0]
-        else:
-            # select by the already-decided high bits; bits list is
-            # LSB-first of the candidate index = reversed(bits_msb)
-            cand = _select_tree(list(reversed(bits_msb)), cands, 0, 1 << k)
-        bits_msb.append(window >= cand)
-    return bits_msb
-
-
-def _packed4_lookup(bits_msb, table4: jnp.ndarray) -> jnp.ndarray:
-    """Look up a byte from a 4-per-word packed (64,) table given the 8
-    index bits (MSB first)."""
-    word_bits_lsb = list(reversed(bits_msb[:6]))  # idx >> 2, LSB first
-    word = _select_tree(word_bits_lsb, table4, 0, 64)
-    lane2 = (
-        bits_msb[6].astype(jnp.uint32) * 2 + bits_msb[7].astype(jnp.uint32)
-    )
-    return (word >> (lane2 * 8)) & jnp.uint32(0xFF)
-
-
-def _scan_decode(
-    rows: jnp.ndarray,
-    bit0: jnp.ndarray,
-    nbits: jnp.ndarray,
-    block_len: int,
-    unroll: int,
-    transposed: bool,
-    decode_window,
+@functools.partial(
+    jax.jit, static_argnames=("block_len", "canonical", "max_len", "levels"))
+def decode_blocks_device(
+    rows, bit0, nbits, t0, t1, t2, *, block_len: int, canonical: bool,
+    max_len: int, levels: int,
 ) -> jnp.ndarray:
-    """Shared scan skeleton for the device decoders.
+    """XLA scan: decode B lanes of up to ``block_len`` symbols each.
 
-    ``decode_window(window)`` maps the next-32-bits window (MSB-aligned,
-    (B,) u32) to ``(symbol u32, code length i32)``; everything else —
-    window formation, cursor bookkeeping, the per-step buffer roll, output
-    stacking — is codec-independent.
-
-    ``unroll`` = S decodes S symbols per scan step from a register-resident
-    (S+1)-word window, rolling the HBM word buffer once per step (by 0..S
-    words via a log2 select tree) instead of once per symbol.  The buffer
-    read+write is the measured bottleneck (session 5: throughput scales
-    ~1/block_len), so S-way unrolling divides that traffic by ~S.
-
-    ``transposed`` carries the word buffer as (W, B) so the (large,
-    128-multiple) block axis lands in the TPU lane dimension; the (B, W)
-    layout pads W up to 128 lanes and wastes most of them for small blocks
-    (session 7: this padding, not raw traffic, capped throughput).
+    ``rows``: (B, W) u32 per-lane word rows (MSB-first bit order);
+    ``bit0``/``nbits``: per-lane start offset within the row and payload bit
+    count; ``t0..t2`` and the static keywords from :func:`make_decode_tables`.
+    Each scan step gathers two words at every lane's cursor and emits one
+    symbol per lane.  Returns (B, block_len) uint8, zero past each lane's
+    symbol count.
     """
-    S = int(unroll)
-    assert S >= 1 and block_len % S == 0, "unroll must divide block_len"
     B, W = rows.shape
-    if W < S + 1:  # the register window reads static columns 0..S
-        rows = jnp.pad(rows, ((0, 0), (0, S + 1 - W)))
-        W = S + 1
+    rows = rows.astype(jnp.uint32)
+    lane = jnp.arange(B)
+
+    def leaf(window):
+        if canonical:
+            ln = jnp.ones_like(window, jnp.int32)
+            delta = jnp.full_like(ln, t1[0])
+            for L in range(1, max_len):
+                ind = (window >= t0[L - 1]).astype(jnp.int32)
+                ln = ln + ind
+                delta = delta + ind * t1[L]
+            v = (window >> (32 - ln).astype(jnp.uint32)).astype(jnp.int32)
+            return t2[(v + delta) & 255], ln
+        pos = jnp.zeros_like(window, jnp.int32)
+        for k in reversed(range(levels)):
+            pos = jnp.where(t0[pos + (1 << k)] <= window, pos + (1 << k), pos)
+        t = t1[pos]
+        return t & 255, t >> 8
 
     def step(state, _):
-        buf, r, consumed = state  # (B, W)|(W, B) u32, (B,) i32, (B,) i32
-        # registers: the next S+1 words of every lane (static slices)
-        win = [buf[j] for j in range(S + 1)] if transposed else [
-            buf[:, j] for j in range(S + 1)
-        ]
-        cur = r  # bit cursor within the window, < 32 + s*32 before sub-step s
-        syms = []
-        for s in range(S):
-            q = cur >> 5  # word index in [0, s] (<= S - 1)
-            rr = (cur & 31).astype(jnp.uint32)
-            if s == 0:
-                w0, w1 = win[0], win[1]
-            else:
-                nsel = 1
-                while nsel <= s:
-                    nsel *= 2
-                qb = [((q >> k) & 1) == 1 for k in range(nsel.bit_length() - 1)]
-                w0 = _select_list(qb, win[: s + 1], 0, nsel)
-                w1 = _select_list(qb, win[1 : s + 2], 0, nsel)
-            hi = jnp.where(rr == 0, w0, w0 << rr)
-            lo = jnp.where(rr == 0, jnp.uint32(0), w1 >> ((jnp.uint32(32) - rr) & 31))
-            window = hi | lo  # next 32 bits, MSB-aligned
-            sym, ln = decode_window(window)
-            active = consumed + ln <= nbits
-            ln = jnp.where(active, ln, 0)
-            syms.append(jnp.where(active, sym, 0).astype(jnp.uint8))
-            cur = cur + ln
-            consumed = consumed + ln
-        # one buffer roll by cur >> 5 in [0, S] words (select tree over the
-        # shift bits — XLA fuses into a single stencil read+write pass)
-        qt = cur >> 5
-        stepw = 1
-        bit = 0
-        while stepw <= S:
-            m = ((qt >> bit) & 1) == 1
-            if transposed:
-                rolled = jnp.concatenate(
-                    [buf[stepw:], jnp.zeros((stepw, B), jnp.uint32)], axis=0
-                )
-                buf = jnp.where(m[None, :], rolled, buf)
-            else:
-                rolled = jnp.concatenate(
-                    [buf[:, stepw:], jnp.zeros((B, stepw), jnp.uint32)], axis=1
-                )
-                buf = jnp.where(m[:, None], rolled, buf)
-            stepw *= 2
-            bit += 1
-        out = syms[0] if S == 1 else jnp.stack(syms, axis=-1)  # (B,) or (B, S)
-        return (buf, cur & 31, consumed), out
+        pos, consumed = state
+        q = pos >> 5
+        r = (pos & 31).astype(jnp.uint32)
+        w0 = rows[lane, jnp.minimum(q, W - 1)]
+        w1 = rows[lane, jnp.minimum(q + 1, W - 1)]
+        lo = jnp.where(r == 0, jnp.uint32(0), w1 >> ((32 - r) & 31))
+        sym, ln = leaf((w0 << r) | lo)
+        active = consumed + ln <= nbits
+        ln = jnp.where(active, ln, 0)
+        sym = jnp.where(active, sym, 0).astype(jnp.uint8)
+        return (pos + ln, consumed + ln), sym
 
-    # normalize the start offset into the word buffer: bit0 < 32 by
-    # construction (payload_to_lane_words), so the initial roll state is
-    # rows itself with r = bit0.
-    buf0 = rows.astype(jnp.uint32)
-    if transposed:
-        buf0 = buf0.T
-    (_, _, _), out = jax.lax.scan(
-        step,
-        (buf0, bit0.astype(jnp.int32), jnp.zeros_like(bit0, jnp.int32)),
-        None,
-        length=block_len // S,
-    )
-    if S == 1:
-        return out.T  # (steps, B) -> (B, block_len)
-    # (steps, B, S) -> (B, steps*S)
-    return jnp.transpose(out, (1, 0, 2)).reshape(B, block_len)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("block_len", "unroll", "transposed")
-)
-def decode_blocks_device(
-    rows: jnp.ndarray,
-    bit0: jnp.ndarray,
-    nbits: jnp.ndarray,
-    thr: jnp.ndarray,
-    sym4: jnp.ndarray,
-    len4: jnp.ndarray,
-    block_len: int,
-    unroll: int = 1,
-    transposed: bool = True,
-) -> jnp.ndarray:
-    """Decode B lanes of up to ``block_len`` symbols each — general prefix
-    trees (interval threshold search; see module docstring).
-
-    ``rows``: (B, W) u32 per-lane word arrays (MSB-first bit order).
-    ``bit0``/``nbits``: per-lane start offset within the row and payload bit
-    count.  Returns (B, block_len) uint8 (zero beyond each lane's symbol
-    count).  ``unroll``/``transposed``: see :func:`_scan_decode`.
-    """
-    thr = thr.astype(jnp.uint32)
-
-    def decode_window(window):
-        bits_msb = _search_leaf(window, thr)
-        sym = _packed4_lookup(bits_msb, sym4)
-        ln = _packed4_lookup(bits_msb, len4).astype(jnp.int32)
-        return sym, ln
-
-    return _scan_decode(rows, bit0, nbits, block_len, unroll, transposed,
-                        decode_window)
-
-
-def make_canonical_decode_tables(tree: HuffTree):
-    """Fast-path tables for CANONICAL codes, or None if the tree's codes are
-    not canonical (sorted by (length, letter), numerically increasing —
-    ``core.canonical.canonicalize`` output, flagged in ``.hf2``).
-
-    Canonical length classes occupy nested value ranges, so the leaf search
-    collapses from the 255-select interval tree to a ladder of ``max_len-1``
-    unsigned compares — ~3-4x fewer VPU ops per symbol:
-
-    * ``ub[L-1]`` (u32, left-aligned): exclusive upper bound of all codes of
-      length <= L; ``len(window) = 1 + popcount over L of (window >= ub)``.
-    * ``dd`` (i32): ladder deltas folding the index offset LUT into the same
-      compares: ``idx = (window >> (32-len)) + dd[0] + sum ind_L * dd[L]``.
-    * ``perm4`` (u32[64]): canonical-index -> byte, packed 4 per word.
-
-    Returns ``(ub, dd, perm4, max_len)``.
-    """
-    from ..core.canonical import canonical_codes_from_lengths
-
-    codes = tree.read_codes()
-    lengths = [(letter, code.length) for letter, code in codes.items()]
-    if any(l > 32 for _, l in lengths):
-        return None
-    want = canonical_codes_from_lengths(lengths)
-    for letter, code in codes.items():
-        if want[letter] != (code.value, code.length):
-            return None
-    items = sorted(codes.items(), key=lambda kv: (kv[1].length, kv[0]))
-    ml = max(l for _, l in lengths)
-    count = np.zeros(ml + 1, dtype=np.int64)
-    for _, l in lengths:
-        count[l] += 1
-    # canonical first-code per length (RFC1951-style) + cumulative index
-    first = np.zeros(ml + 1, dtype=np.int64)
-    code_v = 0
-    for L in range(1, ml + 1):
-        code_v = (code_v + count[L - 1]) << 1
-        first[L] = code_v
-    cum_before = np.concatenate([[0], np.cumsum(count[1:])])[:-1]  # idx of
-    # first length-L code within the sorted symbol order, index L-1
-    delta = [int(cum_before[L - 1] - first[L]) for L in range(1, ml + 1)]
-    ub = np.zeros(max(ml - 1, 1), dtype=np.uint32)
-    for L in range(1, ml):
-        v = (first[L] + count[L]) << (32 - L)
-        ub[L - 1] = min(v, (1 << 32) - 1)
-    dd = np.zeros(ml, dtype=np.int32)
-    dd[0] = delta[0]
-    for j in range(1, ml):
-        dd[j] = delta[j] - delta[j - 1]
-    perm = np.zeros(256, dtype=np.uint8)
-    K = len(items)
-    perm[:K] = [int(letter) for letter, _ in items]
-    if K < 256:
-        perm[K:] = perm[K - 1]
-    return jnp.asarray(ub), jnp.asarray(dd), jnp.asarray(_pack4(perm)), ml
-
-
-@functools.partial(
-    jax.jit, static_argnames=("max_len", "block_len", "unroll", "transposed")
-)
-def decode_blocks_canonical(
-    rows: jnp.ndarray,
-    bit0: jnp.ndarray,
-    nbits: jnp.ndarray,
-    ub: jnp.ndarray,
-    dd: jnp.ndarray,
-    perm4: jnp.ndarray,
-    max_len: int,
-    block_len: int,
-    unroll: int = 1,
-    transposed: bool = True,
-) -> jnp.ndarray:
-    """Canonical-code twin of :func:`decode_blocks_device` (ladder search,
-    tables from :func:`make_canonical_decode_tables`)."""
-
-    def decode_window(window):
-        delta = dd[0].astype(jnp.int32) + jnp.zeros_like(window, jnp.int32)
-        ln = jnp.ones_like(window, jnp.int32)
-        for L in range(1, max_len):
-            ind = (window >= ub[L - 1]).astype(jnp.int32)
-            ln = ln + ind
-            delta = delta + ind * dd[L]
-        v = (window >> (jnp.uint32(32) - ln.astype(jnp.uint32))).astype(jnp.int32)
-        idx = (v + delta) & 255
-        bits_msb = [((idx >> (7 - k)) & 1) == 1 for k in range(8)]
-        sym = _packed4_lookup(bits_msb, perm4)
-        return sym, ln
-
-    return _scan_decode(rows, bit0, nbits, block_len, unroll, transposed,
-                        decode_window)
+    bit0 = bit0.astype(jnp.int32)
+    _, out = jax.lax.scan(step, (bit0, jnp.zeros_like(bit0)), None,
+                          length=block_len)
+    return out.T
 
 
 def decode_rows_device(
-    rows, bit0, nbits, tree: HuffTree, block_len: int,
-    unroll: int | None = None, as_jax: bool = False,
+    rows, bit0, nbits, tree: HuffTree, block_len: int, as_jax: bool = False,
 ) -> np.ndarray:
-    """Decode per-lane word rows with the best available device path:
+    """Decode per-lane word rows through :func:`decode_blocks_device`.
 
-    1. Pallas VMEM fused kernels — TPU, block fits VMEM: canonical ladder
-       when the tree's codes are canonical (sessions 9-10: 13.7 GB/s @
-       BL=128 vs 8.3 XLA), else the general interval-search kernel (any
-       prefix tree, e.g. a reference-built ``.hff``).
-    2. XLA canonical ladder scan.
-    3. XLA general interval scan.
-
-    Override with ``TPUHUFF_DECODER=xla|pallas``.  Returns (B, block_len)
-    uint8 (numpy) — or, with ``as_jax``, the not-yet-synced device array
-    (JAX dispatch is async, so the caller can overlap the D2H of one
-    group with the kernel of the next — the r4 pipelined file path).
+    Returns (B, block_len) uint8 (numpy) — or, with ``as_jax``, the
+    not-yet-synced device array (JAX dispatch is async, so the caller can
+    overlap the D2H of one group with the kernel of the next).
     """
-    import os
-
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    if unroll is None:  # widest unroll dividing block_len (HW sweet spot:
-        # 16 at BL=256, r2 probe: 16.7 vs 15.1 GB/s at 8); plain scan
-        # off-TPU — the wide unrolled step compiles slowly on CPU
-        cands = (16, 8, 4, 2, 1) if on_tpu else (1,)
-        unroll = next(s for s in cands if block_len % s == 0)
-    pref = os.environ.get("TPUHUFF_DECODER", "").lower()
-    canon = make_canonical_decode_tables(tree)
-    want_pallas = (pref == "pallas") or (pref != "xla" and on_tpu)
-    # VMEM bound: word buffer + output block per grid cell
-    fits = np.shape(rows)[1] <= 1024 and block_len <= 1024
-    if want_pallas and fits and block_len % unroll == 0:
-        interp = not on_tpu  # Mosaic only lowers for real TPUs
-        if canon is not None:
-            from .pallas_decode import decode_blocks_pallas_canonical
-
-            ub, dd, perm4, ml = canon
-            return decode_blocks_pallas_canonical(
-                np.asarray(rows), np.asarray(bit0), np.asarray(nbits),
-                ub, dd, perm4, ml, block_len, unroll=unroll, interpret=interp,
-                as_jax=as_jax,
-            )
-        from .pallas_decode import (
-            LANES, SUB, decode_rows_fused_general, make_general_fused_tables,
-        )
-
-        thr, sym4, len4 = make_decode_tables(tree)
-        eytz, s4, l4 = make_general_fused_tables(thr, sym4, len4)
-        codes_all = tree.read_codes()
-        n_leaves = len(codes_all)
-        levels = max(1, (max(n_leaves, 2) - 1).bit_length())
-        msb = max((c.length for c in codes_all.values()), default=32)
-        B, W = np.shape(rows)
-        group = SUB * LANES
-        Bp = -(-B // group) * group
-        wpad = max(W, unroll + 1)
-        rows_p = np.zeros((Bp, wpad), np.uint32)
-        rows_p[:B, :W] = np.asarray(rows, dtype=np.uint32)
-        bit0_p = np.zeros(Bp, np.int32)
-        bit0_p[:B] = np.asarray(bit0, dtype=np.int32)
-        nbits_p = np.zeros(Bp, np.int32)
-        nbits_p[:B] = np.asarray(nbits, dtype=np.int32)
-        out = decode_rows_fused_general(
-            jnp.asarray(rows_p), jnp.asarray(bit0_p), jnp.asarray(nbits_p),
-            eytz, s4, l4, block_len, unroll, interp, levels,
-            max_sym_bits=int(msb),
-        )
-        return out[:B] if as_jax else np.asarray(out[:B])
-    if canon is not None:
-        ub, dd, perm4, ml = canon
-        out = decode_blocks_canonical(
-            jnp.asarray(rows), jnp.asarray(bit0), jnp.asarray(nbits),
-            ub, dd, perm4, ml, block_len, unroll=unroll,
-        )
-    else:
-        thr, sym4, len4 = make_decode_tables(tree)
-        out = decode_blocks_device(
-            jnp.asarray(rows), jnp.asarray(bit0), jnp.asarray(nbits),
-            thr, sym4, len4, block_len, unroll=unroll,
-        )
+    tables, statics = make_decode_tables(tree)
+    out = decode_blocks_device(jnp.asarray(rows), jnp.asarray(bit0),
+                               jnp.asarray(nbits), *tables,
+                               block_len=block_len, **statics)
     return out if as_jax else np.asarray(out)
 
 
-def decode_hf2_device(header, payload: bytes, unroll: int | None = None) -> bytes:
+def decode_hf2_device(header, payload: bytes) -> bytes:
     """Decode a whole .hf2 payload on device; returns the original bytes.
 
-    Uses the canonical ladder decoders whenever the header tree's codes are
-    canonical (detected from the tree itself, not the flag — foreign files
-    may flag incorrectly), else the general interval decoder.
+    The leaf search follows the header tree's shape (detected from the tree
+    itself, not the flag — foreign files may flag incorrectly).
     """
     ends = header.end_bits.astype(np.int64)
     starts = np.concatenate([[0], ends[:-1]])
     rows, bit0 = payload_to_lane_words(payload, starts, ends, header.block_len)
     nbits = (ends - starts).astype(np.int32)
-    out = decode_rows_device(rows, bit0, nbits, header.tree,
-                             header.block_len, unroll)
+    out = decode_rows_device(rows, bit0, nbits, header.tree, header.block_len)
     # rows are block_len apart in the original stream, so the flat view is
     # the stream itself (padding symbols land past orig_len and are cut)
     return out.reshape(-1)[: header.orig_len].tobytes()

@@ -1,21 +1,23 @@
 """Device encode: vectorized Huffman bit-packing in JAX/XLA.
 
-The TPU-native replacement for the reference's bit-serial shift/or loop
-(`/root/reference/huff_coding/src/comp.rs:424-451`).  No gathers, no
-scatters, no data-dependent control flow — the pack is a **doubling
-bit-merge**:
+The data-parallel replacement for the reference's bit-serial shift/or loop
+(`huff_coding/src/comp.rs:424-451`).  No scatters and no
+data-dependent control flow — the pack is a **doubling bit-merge**:
 
-1.  LUT: each byte maps to ``(acode, len)`` where ``acode`` is the codeword
-    left-aligned in a u32 (``code << (32 - len)``) — dense tables derived
-    from the tree (`HuffTree.encode_tables`).
+1.  Lookup: each byte maps to ``(acode, len)`` where ``acode`` is the
+    codeword left-aligned in a u32 (``code << (32 - len)``).  Canonical
+    trees use the rank ladder (:func:`lut_canonical`); any other tree a
+    ``jnp.take`` from the dense tables of `HuffTree.encode_tables`.  On the
+    H100 the ladder measured 3.9 ms and the take 6.2 ms per 64 MiB
+    (PERF.md), so the ladder is used wherever the tree allows it.
 2.  Treat every symbol as a bit-string ``(value_words, bit_len)``.
     Concatenation of two bit-strings is ``A | (B >> len_A)`` — associative.
     ``log2(N)`` pairwise-merge levels turn N symbols into one packed block.
 3.  The per-row dynamic right-shift by ``len_A`` bits decomposes into a
     word-granularity shift (select tree over the bits of ``len_A >> 5``,
     static slices only) and an elementwise bit shift with carry
-    (``(x >> r) | (x_prev << (32 - r))`` — VPU-native, per-row shift
-    amounts broadcast).
+    (``(x >> r) | (x_prev << (32 - r))``, per-row shift amounts
+    broadcast).
 
 Everything is (B, ...) batched over blocks, so the same function runs
 per-chip under ``shard_map`` (SURVEY §2 parallelism table: the CLI's
@@ -41,8 +43,9 @@ __all__ = [
     "make_encode_tables",
     "words_to_payload",
     "block_bit_lengths",
-    "lut_select",
-    "lut_lens",
+    "count_missing",
+    "make_canonical_encode_tables",
+    "lut_canonical",
 ]
 
 
@@ -68,14 +71,12 @@ def make_encode_tables(lens_lut: np.ndarray, codes_lut: np.ndarray):
 
 
 def _select_tree(bits, table: jnp.ndarray, lo: int, size: int) -> jnp.ndarray:
-    """Gather-free table lookup: balanced binary select tree.
+    """Small-table lookup as a balanced binary select tree.
 
     ``bits[k]`` is the boolean array "bit k of the index is set" (any common
     shape); ``table`` is a traced 1-D array of ``size`` power-of-two length.
     Returns ``table[index]`` elementwise using only static slices and
-    ``where`` — XLA fuses the whole tree into one elementwise pass.  This
-    replaces ``jnp.take``, which lowers to a scalar-ish gather on TPU
-    (measured ~0.1 GB/s for a 256-entry LUT on v5e vs ~10 GB/s for this).
+    ``where`` — XLA fuses the whole tree into the ladder's elementwise pass.
     """
     if size == 1:
         return table[lo]
@@ -86,48 +87,11 @@ def _select_tree(bits, table: jnp.ndarray, lo: int, size: int) -> jnp.ndarray:
     return jnp.where(bits[level], hi_v, lo_v)
 
 
-def lut_select(data_i32: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
-    """``table[data]`` for a 256-entry traced table, gather-free."""
-    bits = [((data_i32 >> k) & 1) == 1 for k in range(8)]
-    return _select_tree(bits, table, 0, 256)
-
-
-def lut_lens(data_i32: jnp.ndarray, lens_lut: jnp.ndarray) -> jnp.ndarray:
-    """Gather-free code-length lookup.
-
-    Lengths fit a byte, so four LUT entries pack per u32 word: the tree
-    shrinks to 64 entries (63 selects) plus one variable shift — ~4x cheaper
-    than a full 256-entry tree.
-    """
-    l8 = lens_lut.astype(jnp.uint32) & jnp.uint32(0xFF)
-    packed = (
-        l8[0::4]
-        | (l8[1::4] << 8)
-        | (l8[2::4] << 16)
-        | (l8[3::4] << 24)
-    )  # (64,)
-    bits = [((data_i32 >> (k + 2)) & 1) == 1 for k in range(6)]
-    word = _select_tree(bits, packed, 0, 64)
-    sh = ((data_i32 & 3) * 8).astype(jnp.uint32)
-    return ((word >> sh) & jnp.uint32(0xFF)).astype(jnp.int32)
-
-
-def _lut_lookup(data: jnp.ndarray, lens_lut, acodes_lut, gather_free: bool):
-    idx = data.astype(jnp.int32)
-    if gather_free:
-        return lut_lens(idx, lens_lut), lut_select(idx, acodes_lut)
-    return (
-        jnp.take(lens_lut, idx, axis=0),
-        jnp.take(acodes_lut, idx, axis=0),
-    )
-
-
 def make_canonical_encode_tables(tree):
     """Fast-path encode tables for CANONICAL codes, or None otherwise.
 
-    With canonical codes the per-symbol (len, left-aligned code) lookup
-    collapses from two select trees over 256 entries (~320 fused ops) to
-    ~110: ``rank = invperm[byte]`` (packed 4-per-word, 63 selects), then a
+    With canonical codes the per-symbol (len, left-aligned code) lookup is
+    ``rank = invperm[byte]`` (packed 4-per-word, 63 selects), then a
     ladder of ``max_len-1`` compares on the rank recovers the length and
     folds the code-base offset, and one variable shift left-aligns —
     ``code = (rank + d[len]) << (32 - len)`` (the exact inverse of the
@@ -189,41 +153,6 @@ def make_canonical_encode_tables(tree):
         jnp.asarray(dd),
         ml,
         bool(present.all()),
-    )
-
-
-def make_combined_encode_tables(tree):
-    """Tables for the ``TPUHUFF_ENC_COMBINED`` kernel path (r5, VERDICT r4
-    #8): one pre-combined 16-bit entry ``(acode12 << 4) | len`` per byte,
-    split into packed low/high byte-planes occupying the standard
-    canon_tables slots — (lo4[64]→inv4, zeros[8]→present, hi4[:32]→cumle,
-    hi4[32:]→dd).  Returns ``(t0, t1, t2, t3, max_len, full_alphabet)`` or
-    None when the tree is not canonical or deeper than 12."""
-    tabs = make_canonical_encode_tables(tree)
-    if tabs is None or tabs[4] > 12:
-        return None
-    lens = np.asarray(tree.encode_tables()[0], dtype=np.int64)
-    codes = np.asarray(tree.encode_tables()[1], dtype=np.uint64)
-    C = np.zeros(256, dtype=np.uint32)
-    mask = lens > 0
-    acode12 = (codes[mask] << (12 - lens[mask]).astype(np.uint64)).astype(
-        np.uint32)
-    C[mask] = (acode12 << 4) | lens[mask].astype(np.uint32)
-    lo = C & 0xFF
-    hi = (C >> 8) & 0xFF
-
-    def pack4(v):
-        return (v[0::4] | (v[1::4] << 8) | (v[2::4] << 16)
-                | (v[3::4] << 24)).astype(np.uint32)
-
-    lo4, hi4 = pack4(lo), pack4(hi)
-    return (
-        jnp.asarray(lo4),
-        jnp.asarray(np.zeros(8, dtype=np.uint32)),
-        jnp.asarray(hi4[:32].view(np.int32)),
-        jnp.asarray(hi4[32:].view(np.int32)),
-        tabs[4],
-        tabs[5],
     )
 
 
@@ -320,124 +249,17 @@ def _merge_level(
     return A_ext | shifted, la + lb
 
 
-def _shift_right_bits_t(
-    vals: jnp.ndarray, shift: jnp.ndarray, out_w: int,
-    max_shift: int | None = None,
-) -> jnp.ndarray:
-    """Transposed-layout twin of :func:`_shift_right_bits`.
-
-    ``vals``: (n, W, B) with words on axis 1 and the (128-multiple) block
-    axis last, so every elementwise op runs with blocks in the TPU lane
-    dimension — no lane padding for small W (session 7: the (B, W) layout's
-    padding of W up to 128 lanes capped throughput).  ``shift``: (n, B).
-    """
-    W = vals.shape[1]
-    x = jnp.pad(vals, ((0, 0), (0, out_w - W), (0, 0)))
-    q = (shift >> 5).astype(jnp.int32)
-    r = (shift & 31).astype(jnp.uint32)
-    maxq = max_shift >> 5 if max_shift is not None else W
-    step = 1
-    while step <= maxq:
-        rolled = jnp.concatenate(
-            [jnp.zeros_like(x[:, :step]), x[:, :-step]], axis=1
-        )
-        x = jnp.where(
-            (((q >> int(np.log2(step))) & 1) == 1)[:, None, :], rolled, x
-        )
-        step *= 2
-    rr = r[:, None, :]
-    prev = jnp.concatenate([jnp.zeros_like(x[:, :1]), x[:, :-1]], axis=1)
-    lo = jnp.where(rr == 0, jnp.uint32(0), prev << ((jnp.uint32(32) - rr) & 31))
-    return (x >> rr) | lo
-
-
-def _merge_level_t(
-    vals: jnp.ndarray, lens: jnp.ndarray, max_bits: int | None = None
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Transposed twin of :func:`_merge_level`: vals (n, W, B), lens (n, B)."""
-    W = vals.shape[1]
-    A = vals[0::2]
-    Bv = vals[1::2]
-    la = lens[0::2]
-    lb = lens[1::2]
-    if max_bits is None:
-        out_w, max_shift = 2 * W, None
-    else:
-        assert max_bits <= 32 * W
-        out_w = min(2 * W, -(-(2 * max_bits) // 32))
-        max_shift = max_bits
-    shifted = _shift_right_bits_t(Bv, la, out_w, max_shift)
-    A_ext = jnp.pad(A, ((0, 0), (0, out_w - W), (0, 0)))
-    return A_ext | shifted, la + lb
-
-
-def _auto_gather_free(gather_free):
-    if gather_free is None:
-        try:
-            return jax.default_backend() == "tpu"
-        except Exception:
-            return False
-    return bool(gather_free)
-
-
-def _auto_transposed(transposed):
-    """Blocks-in-lanes merge layout: on by default on TPU (sessions 8-9:
-    1.4-1.5x over the blocks-in-sublanes layout at every block size)."""
-    if transposed is None:
-        try:
-            return jax.default_backend() == "tpu"
-        except Exception:
-            return False
-    return bool(transposed)
-
-
-# VMEM ceiling for the fused Pallas encode route.  Per grid cell the kernel
-# holds the (N/2, 128) int32 input block, the output words, 2-3 live merge
-# temporaries, and (since r4) the transpose identity + transposed output.
-# N = 2048 with the transposed out layout measured a hard Mosaic scoped-
-# vmem OOM on v5e (21.26M > 16M limit, r4 s1) — the cap is what hardware
-# validation supports: N = 1024 compiles and is full-payload bit-exact
-# (r4 s2).  Larger N takes the XLA merge.
-PALLAS_MAX_BLOCK = 1024
-
-
-def _auto_pallas(pallas):
-    """Fused Pallas VMEM kernel: on by default on TPU (session 13: 7.7-9.9
-    GB/s e2e vs 5.7 for the XLA merge; requires canonical tables and
-    ``max_code_len <= 16`` so symbol pairs merge inside one u32).
-    ``TPUHUFF_BACKEND=xla`` force-disables it; ``TPUHUFF_BACKEND=pallas``
-    force-enables it (interpret-mode off-TPU)."""
-    if pallas is None:
-        import os
-
-        backend = os.environ.get("TPUHUFF_BACKEND", "").lower()
-        if backend == "xla":
-            return False
-        if backend == "pallas":
-            return True
-        try:
-            return jax.default_backend() == "tpu"
-        except Exception:
-            return False
-    return bool(pallas)
-
-
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "block_len", "gather_free", "max_code_len", "transposed", "pallas",
-        "full_alphabet", "with_miss",
-    ),
+    static_argnames=("block_len", "max_code_len", "full_alphabet",
+                     "with_miss"),
 )
 def encode_blocks(
     data: jnp.ndarray, lens_lut: jnp.ndarray, acodes_lut: jnp.ndarray,
     valid_lens: jnp.ndarray | None = None,
     block_len: int | None = None,
-    gather_free: bool | None = None,
     max_code_len: int | None = None,
-    transposed: bool | None = None,
     canon_tables=None,
-    pallas: bool | None = None,
     full_alphabet: bool = False,
     with_miss: bool = False,
     hist_data: jnp.ndarray | None = None,
@@ -447,36 +269,23 @@ def encode_blocks(
     ``data``: (B, N) uint8 with N a power of two.  ``valid_lens`` (B,) marks
     the real prefix of each block — bytes past it are padding and contribute
     no bits (ragged tails of a stream reshaped to fixed blocks).  Returns
-    ``(words (B, N) uint32, bit_lens (B,))``.  Symbols with LUT length 0
+    ``(words (B, W) uint32, bit_lens (B,))``.  Symbols with LUT length 0
     also contribute nothing (the "missing letter" case is checked on host).
 
-    ``gather_free`` selects the select-tree LUT (default on TPU, where
-    gathers are catastrophically slow) vs ``jnp.take`` (default elsewhere).
     ``max_code_len`` is a static bound on code lengths (pass
     ``int(lens.max())`` from concrete tables) — it shrinks merge temporaries
     and the output word count to what the bound allows.
-    ``transposed`` runs the merge in (symbols, words, blocks) layout with
-    the block axis in TPU lanes (see :func:`_shift_right_bits_t`).
     ``canon_tables`` (from :func:`make_canonical_encode_tables`, requires
-    ``max_code_len``) switches the symbol lookup to the ~3x-cheaper
+    ``max_code_len``) switches the symbol lookup from ``jnp.take`` to the
     canonical ladder; the packed bits are identical.
-    ``pallas`` routes the whole lookup+merge through the fused VMEM kernel
-    (:func:`tpuhuff.kernels.pallas_encode2.encode_blocks_pallas2`) — auto on
-    TPU when the tables and the ``2*max_code_len <= 32`` pair-merge bound
-    allow it; bit-identical output (words array may be a different width —
-    always index by the returned bit lengths).
     ``with_miss=True`` additionally returns the total count of valid bytes
-    with no code as a third array — on the fused Pallas route it rides the
-    encode kernel for free; elsewhere it adds one LUT pass *inside the same
-    program* (still one dispatch, unlike a separate
-    :func:`count_missing` call).
+    with no code as a third array — one more lookup pass *inside the same
+    program* (one dispatch, unlike a separate :func:`count_missing` call).
     ``hist_data`` (config 4's fused histogram+encode pipeline,
     :func:`tpuhuff.io.dataset.compress_dataset`): a uint8 array whose
-    exact (256,) int32 histogram is appended to the returned tuple — on
-    the fused Pallas route the MXU histogram rides the VPU-bound encode
-    kernel (`pallas_encode2._encode_kernel_fused`); elsewhere the
-    histogram traces into the same program (one dispatch).  Typically the
-    chunk being encoded (adaptive tree refresh) or the next chunk.
+    exact (256,) int32 histogram is appended to the returned tuple, traced
+    into the same program.  Typically the chunk being encoded (adaptive tree
+    refresh) or the next chunk.
     """
     if data.ndim == 1:
         data = data[None, :]
@@ -485,110 +294,40 @@ def encode_blocks(
         assert N == block_len
     assert N & (N - 1) == 0, "block length must be a power of two"
     mb = None if max_code_len is None else int(max_code_len)
-    gf = _auto_gather_free(gather_free)
 
-    if (
-        _auto_pallas(pallas)
-        and canon_tables is not None
-        and mb is not None
-        and 2 * mb <= 32
-        and 2 <= N <= PALLAS_MAX_BLOCK
-    ):
-        from .pallas_encode2 import encode_blocks_pallas2, fused_layout_ok
-
-        try:
-            on_tpu = jax.default_backend() == "tpu"
-        except Exception:
-            on_tpu = False
-        # off-TPU an explicit pallas request runs the interpreter (Mosaic
-        # only lowers for real TPUs); bit-identical, correctness-only speed
-        if (with_miss or hist_data is not None) and not fused_layout_ok(N, mb):
-            w, b = encode_blocks_pallas2(data, canon_tables, mb, valid_lens,
-                                         interpret=not on_tpu,
-                                         full_alphabet=full_alphabet)
-            res = [w, b]
-            if with_miss:
-                res.append(_miss_inline(data, lens_lut, valid_lens, gf))
-            if hist_data is not None:
-                res.append(_hist_inline(hist_data))
-            return tuple(res)
-        return encode_blocks_pallas2(data, canon_tables, mb, valid_lens,
-                                     interpret=not on_tpu,
-                                     full_alphabet=full_alphabet,
-                                     with_miss=with_miss,
-                                     hist_data=hist_data)
-
-    def lookup(d2):
-        if canon_tables is not None:
-            assert mb is not None, "canon_tables requires max_code_len"
-            inv4, present, cumle, dd = canon_tables
-            return lut_canonical(d2.astype(jnp.int32), inv4, present,
-                                 cumle, dd, mb, full_alphabet)
-        return _lut_lookup(d2, lens_lut, acodes_lut, gf)
-
-    if _auto_transposed(transposed):
-        lens, acodes = lookup(data.T)  # (N, B)
-        if valid_lens is not None:
-            mask = jnp.arange(N, dtype=jnp.int32)[:, None] < valid_lens[None, :]
-            lens = jnp.where(mask, lens, 0)
-            acodes = jnp.where(mask, acodes, jnp.uint32(0))
-        vals = acodes[:, None, :]  # (N, 1, B)
-        cur = lens
-        while vals.shape[0] > 1:
-            vals, cur = _merge_level_t(vals, cur, mb)
-            if mb is not None:
-                mb = min(2 * mb, 32 * vals.shape[1])
-        res = [vals[0].T, cur[0]]
+    if canon_tables is not None:
+        assert mb is not None, "canon_tables requires max_code_len"
+        inv4, present, cumle, dd = canon_tables
+        lens, acodes = lut_canonical(data.astype(jnp.int32), inv4, present,
+                                     cumle, dd, mb, full_alphabet)
     else:
-        lens, acodes = lookup(data)
-        if valid_lens is not None:
-            mask = jnp.arange(N, dtype=jnp.int32)[None, :] < valid_lens[:, None]
-            lens = jnp.where(mask, lens, 0)
-            acodes = jnp.where(mask, acodes, jnp.uint32(0))
-        vals = acodes[..., None]  # (B, N, 1)
-        cur = lens
-        while vals.shape[-2] > 1:
-            vals, cur = _merge_level(vals, cur, mb)
-            if mb is not None:
-                mb = min(2 * mb, 32 * vals.shape[-1])
-        res = [vals[..., 0, :], cur[..., 0]]
-    if with_miss:
-        res.append(_miss_inline(data, lens_lut, valid_lens, gf))
-    if hist_data is not None:
-        res.append(_hist_inline(hist_data))
-    return tuple(res) if len(res) > 2 else (res[0], res[1])
-
-
-def _hist_inline(hist_data):
-    """Histogram of a second operand traced into the caller's program."""
-    from .histogram import histogram
-
-    return histogram(hist_data)
-
-
-def _miss_inline(data, lens_lut, valid_lens, gather_free: bool):
-    """Missing-letter count traced inline into the caller's program."""
-    idx = data.astype(jnp.int32)
-    lens = lut_lens(idx, lens_lut) if gather_free else jnp.take(
-        lens_lut, idx, axis=0
-    )
-    miss = (lens == 0).astype(jnp.int32)
+        idx = data.astype(jnp.int32)
+        lens = jnp.take(lens_lut, idx, axis=0)
+        acodes = jnp.take(acodes_lut, idx, axis=0)
     if valid_lens is not None:
-        N = data.shape[-1]
-        miss = jnp.where(
-            jnp.arange(N, dtype=jnp.int32)[None, :] < valid_lens[:, None],
-            miss, 0,
-        )
-    return jnp.sum(miss)
+        mask = jnp.arange(N, dtype=jnp.int32)[None, :] < valid_lens[:, None]
+        lens = jnp.where(mask, lens, 0)
+        acodes = jnp.where(mask, acodes, jnp.uint32(0))
+    vals = acodes[..., None]  # (B, N, 1)
+    cur = lens
+    while vals.shape[-2] > 1:
+        vals, cur = _merge_level(vals, cur, mb)
+        if mb is not None:
+            mb = min(2 * mb, 32 * vals.shape[-1])
+    res = [vals[..., 0, :], cur[..., 0]]
+    if with_miss:
+        res.append(_count_missing(data, lens_lut, valid_lens))
+    if hist_data is not None:
+        from .histogram import histogram
+
+        res.append(histogram(hist_data))
+    return tuple(res)
 
 
-@functools.partial(jax.jit, static_argnames=("gather_free",))
-def _count_missing_dev(data, lens_lut, valid_lens, gather_free):
-    idx = data.astype(jnp.int32)
-    lens = lut_lens(idx, lens_lut) if gather_free else jnp.take(
-        lens_lut, idx, axis=0
-    )
-    miss = (lens == 0).astype(jnp.int32)
+def _count_missing(data, lens_lut, valid_lens):
+    """Valid bytes of ``data`` with no code (LUT length 0)."""
+    miss = (jnp.take(lens_lut, data.astype(jnp.int32), axis=0) == 0
+            ).astype(jnp.int32)
     if valid_lens is not None:
         N = data.shape[-1]
         miss = jnp.where(
@@ -601,7 +340,6 @@ def _count_missing_dev(data, lens_lut, valid_lens, gather_free):
 def count_missing(
     data: jnp.ndarray, lens_lut: jnp.ndarray,
     valid_lens: jnp.ndarray | None = None,
-    gather_free: bool | None = None,
 ) -> int:
     """Number of (valid) input bytes with no code in the LUT.
 
@@ -614,18 +352,12 @@ def count_missing(
     """
     if data.ndim == 1:
         data = data[None, :]
-    return int(_count_missing_dev(data, lens_lut, valid_lens,
-                                  _auto_gather_free(gather_free)))
+    return int(jax.jit(_count_missing)(data, lens_lut, valid_lens))
 
 
-def block_bit_lengths(
-    data: jnp.ndarray, lens_lut: jnp.ndarray, gather_free: bool | None = None
-) -> jnp.ndarray:
+def block_bit_lengths(data: jnp.ndarray, lens_lut: jnp.ndarray) -> jnp.ndarray:
     """Exact per-block bit lengths (cheap pre-pass for allocation/offsets)."""
-    if _auto_gather_free(gather_free):
-        lens = lut_lens(data.astype(jnp.int32), lens_lut)
-    else:
-        lens = jnp.take(lens_lut, data.astype(jnp.int32), axis=0)
+    lens = jnp.take(lens_lut, data.astype(jnp.int32), axis=0)
     return jnp.sum(lens, axis=-1)
 
 

@@ -1,48 +1,42 @@
-"""Device histogram: 256-bin byte counts without scatters.
+"""Device histogram: 256-bin byte counts as one small matrix product.
 
-The TPU-native replacement for the reference's thread-per-chunk histogram
-(`/root/reference/huff_coding/src/weights.rs:293-319`).  Scatter-add is
-serial on TPU, so the kernel uses the **nibble outer-product** formulation:
+The data-parallel replacement for the reference's thread-per-chunk
+histogram (`huff_coding/src/weights.rs:293-319`), in the
+**nibble outer-product** form:
 
     byte = hi4 * 16 + lo4
     hist[hi, lo] = sum_i onehot16(hi_i)[hi] * onehot16(lo_i)[lo]
     =>  hist(16,16) = onehot16(hi).T @ onehot16(lo)
 
-One MXU contraction over the data axis produces the whole 256-bin table;
-one-hot construction is 2x16 compares per byte on the VPU (vs 256 for a
-direct one-hot-256 reduce).  f32 accumulation is exact below 2^24 per tile,
-so data is chunked and accumulated in int32/int64 outside the matmul.
+One contraction over the data axis produces the whole 256-bin table from
+2x16 compares per byte.  On the H100 it counts 64 MiB in 2.5 ms against
+16.7 ms for ``jnp.bincount``, whose scatter-add serializes on 256 hot
+addresses (PERF.md), so it is the only route.
 
-Cross-chip merge is a plain ``psum`` over the mesh axis
+Exactness: the one-hot operands are 0/1 in bfloat16 (exact), the product
+accumulates in float32 (``preferred_element_type``), and every matrix
+product covers at most ``_CHUNK`` = 2^22 < 2^24 bytes, so each partial
+count is an integer float32 holds exactly; chunks are summed in int32.
+bfloat16 operands also keep the product off TF32.
+
+Cross-device merge is a plain ``psum`` over the mesh axis
 (:mod:`tpuhuff.dist`) — the collective analogue of the reference's
 ``add_byte_weights`` join (`weights.rs:308-318`).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
-__all__ = ["histogram", "histogram_u32"]
+__all__ = ["histogram"]
 
 # keep per-matmul counts < 2^24 for exact f32 accumulation
 _CHUNK = 1 << 22
 
 
-@jax.jit
 def _hist_chunk(chunk: jnp.ndarray) -> jnp.ndarray:
-    """(n,) uint8 -> (256,) int32 via the nibble outer product.
-
-    Operand dtype does NOT matter here: r3 measured bf16, int8/f32-acc and
-    int8/i32-acc all at ~4.0 ms / 16 MiB standalone — the cost is the HBM
-    materialization of the dot operands, not the MXU pass.  (This corrects
-    r2's contradictory notes of 0.35 ms vs 1.19 ms for int8.)  f32
-    accumulation is exact for 0/1 one-hots below 2^24 per tile, guaranteed
-    by ``_CHUNK``.  The real fix is the Pallas kernel
-    (`pallas_histogram.py`), which keeps operands in VMEM.
-    """
+    """(n,) uint8, n <= ``_CHUNK`` -> (256,) int32 via the nibble product."""
     hi = (chunk >> 4).astype(jnp.int32)
     lo = (chunk & 15).astype(jnp.int32)
     iota = jnp.arange(16, dtype=jnp.int32)
@@ -53,8 +47,8 @@ def _hist_chunk(chunk: jnp.ndarray) -> jnp.ndarray:
 
 
 @jax.jit
-def histogram_xla(data: jnp.ndarray) -> jnp.ndarray:
-    """(..., n) uint8 -> (256,) int32 histogram, XLA one-hot matmul path."""
+def histogram(data: jnp.ndarray) -> jnp.ndarray:
+    """(..., n) uint8 -> (256,) int32 histogram over all elements."""
     flat = data.reshape(-1)
     n = flat.shape[0]
     if n <= _CHUNK:
@@ -65,33 +59,3 @@ def histogram_xla(data: jnp.ndarray) -> jnp.ndarray:
     hists = jax.vmap(_hist_chunk)(padded.reshape(n_chunks, _CHUNK))
     total = jnp.sum(hists, axis=0)
     return total.at[0].add(-(n_chunks * _CHUNK - n))
-
-
-@jax.jit
-def histogram(data: jnp.ndarray) -> jnp.ndarray:
-    """(..., n) uint8 -> (256,) int32 histogram over all elements.
-
-    On TPU, large inputs take the Pallas grouped one-hot kernel
-    (:mod:`tpuhuff.kernels.pallas_histogram`, ~2-6x this module's XLA
-    matmul — the XLA dot must materialize its one-hot operands in HBM);
-    elsewhere, and for small inputs, the XLA path.  Both are exact.
-    """
-    n = int(np_size(data))
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    if on_tpu:
-        from .pallas_histogram import PALLAS_HIST_MIN_BYTES, histogram_pallas
-
-        if n >= PALLAS_HIST_MIN_BYTES:
-            return histogram_pallas(data)
-    return histogram_xla(data)
-
-
-def np_size(x) -> int:
-    return int(x.size) if hasattr(x, "size") else len(x)
-
-
-def histogram_u32(data: jnp.ndarray) -> jnp.ndarray:
-    return histogram(data)

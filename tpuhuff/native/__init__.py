@@ -1,7 +1,8 @@
 """ctypes bindings to the C++ host runtime (``cpp/huffc.cpp``).
 
-The native library is built lazily on first use (no pip/pybind needed — plain
-``g++ -shared`` + ctypes).  Every entry point has a numpy fallback in
+The native library is built from ``cpp/huffc.cpp`` into the git-ignored
+``build/`` directory on first use (no pip/pybind needed — plain ``g++ -shared``
++ ctypes); ``python -m tpuhuff --warmup`` builds it up front.  Every entry point has a numpy fallback in
 :mod:`tpuhuff.core`, so the framework works without a compiler; with it, the
 host paths run at memory-bandwidth-class speed:
 
@@ -43,8 +44,8 @@ __all__ = [
 ]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_CPP_DIR = os.path.join(_REPO_ROOT, "cpp")
-_LIB_PATH = os.path.join(_CPP_DIR, "libhuffc.so")
+_SRC_PATH = os.path.join(_REPO_ROOT, "cpp", "huffc.cpp")
+_LIB_PATH = os.path.join(_REPO_ROOT, "build", "libhuffc.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -63,9 +64,12 @@ def num_threads() -> int:
 
 
 def _build() -> bool:
-    src = os.path.join(_CPP_DIR, "huffc.cpp")
-    if not os.path.exists(src):
+    if not os.path.exists(_SRC_PATH):
         return False
+    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+    # build to a private name and rename into place: concurrent processes
+    # (test workers) must never load a half-written library
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     # prefer linking zlib (its SIMD crc32 is ~2x our slicing-by-8); fall
     # back to the self-contained build when libz/headers are absent
     variants = [
@@ -78,15 +82,18 @@ def _build() -> bool:
             cmd.append(arch)
         if use_z:
             cmd.append("-DHUFFC_USE_ZLIB")
-        cmd += ["-o", _LIB_PATH, src]
+        cmd += ["-o", tmp, _SRC_PATH]
         if use_z:
             cmd.append("-lz")
         try:
             r = subprocess.run(cmd, capture_output=True, timeout=120)
             if r.returncode == 0:
+                os.replace(tmp, _LIB_PATH)
                 return True
         except (OSError, subprocess.TimeoutExpired):
-            return False
+            break
+    if os.path.exists(tmp):
+        os.remove(tmp)
     return False
 
 
@@ -97,10 +104,9 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lib_lock:
         if _lib is not None or _build_failed:
             return _lib
-        src = os.path.join(_CPP_DIR, "huffc.cpp")
         stale = not os.path.exists(_LIB_PATH) or (
-            os.path.exists(src)
-            and os.path.getmtime(src) > os.path.getmtime(_LIB_PATH)
+            os.path.exists(_SRC_PATH)
+            and os.path.getmtime(_SRC_PATH) > os.path.getmtime(_LIB_PATH)
         )
         if stale and not _build():
             _build_failed = True
